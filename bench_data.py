@@ -14,7 +14,7 @@ Phases (one JSON line each):
   world_build    census-like world generation (world/census_like.py)
 
 Usage: python bench_data.py [york|yh] ...   (default: york)
-No TPU needed — every phase is host-side by design (SURVEY.md L0/L1).
+No accelerator needed — every phase is host-side by design (SURVEY.md L0/L1).
 """
 
 import json

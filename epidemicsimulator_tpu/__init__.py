@@ -1,6 +1,6 @@
-"""TPU-native agent-based epidemic simulation framework.
+"""Agent-based epidemic simulation framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 NoSuchThingAsRandom/EpidemicSimulator (ESUCD): synthetic UK populations from
 census data, hourly SEIR(+V) dynamics with building-colocation exposure,
 public-transport mixing and threshold-triggered interventions — expressed as

@@ -3,7 +3,7 @@
 The reference's exposure-chance values were hand-calibrated for the
 dissertation (its notebooks compare `global_stats.json` dumps to real
 case data by eye; the repo ships no fitting code).  Here calibration is a
-first-class, TPU-shaped operation: because every ``DiseaseParams`` /
+first-class, accelerator-shaped operation: because every ``DiseaseParams`` /
 ``InterventionThresholds`` field is a *traced* scalar, R candidate values
 evaluate in ONE packed-ensemble run (engine/packed.py tiles them into a
 single world — one compile, R trajectories per sweep), and the search is

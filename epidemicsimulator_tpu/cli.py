@@ -31,7 +31,7 @@ import time
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="epidemicsimulator-tpu",
-        description="TPU-native epidemic simulation using census data",
+        description="Agent-based epidemic simulation on census data, in JAX",
     )
     p.add_argument("area", help="NOMIS area code (e.g. 1946157112 for York) or a label")
     p.add_argument("--directory", default="data", help="data directory")
@@ -76,7 +76,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--shapefile", default=None, help="OA boundary shapefile path")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="disable the persistent XLA compilation cache "
-                        "(~/.cache/epidemicsimulator_tpu/xla by default)")
+                        "($JAX_COMPILATION_CACHE_DIR if set, else .cache/xla "
+                        "in the checkout)")
     p.add_argument("--params-file", default=None,
                    help="JSON disease/threshold parameters (default: COVID)")
     return p
@@ -200,7 +201,7 @@ def main(argv=None) -> int:
     if not args.no_compile_cache:
         from .utils import enable_compilation_cache
 
-        enable_compilation_cache()
+        logging.info("compilation cache: %s", enable_compilation_cache())
 
     phases: dict = {}  # coarse wall-clock phases -> <output>/cli_phases.json
     t_start = time.perf_counter()
@@ -312,8 +313,11 @@ def main(argv=None) -> int:
         return 0
 
     if args.simulate:
+        from .backend import device_info
         from .config import Params, SimConfig
         from .engine.simulator import Simulator
+
+        logging.info("JAX devices: %s", device_info())
 
         cfg = SimConfig(max_steps=args.max_steps, chunk_size=args.chunk_size)
         params = (

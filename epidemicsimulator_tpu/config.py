@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native epidemic engine.
+"""Typed configuration for the epidemic engine.
 
 The reference (ESUCD) scatters its epidemiological constants across compile-time
 Rust consts (`sim/src/config.rs:22-47`), the disease model constructor
@@ -89,17 +89,10 @@ MASK_PUBLIC_TRANSPORT = 1
 MASK_EVERYWHERE = 2
 
 # Storage dtype of the disease state-timer lanes.  Values stay < 400
-# (disease.rs:47-71 resets at exposed/infected_time), but the lane is
-# carried int32: the fused citizen kernel computes in int32 (Mosaic has
-# no 2D s16 store path that isn't pathological — ops/pallas_citizen.py),
-# and an int16 store forced two 63M-lane convert passes per step at the
-# kernel boundary (~1.0 ms/step at UK scale; docs/PERF.md xplane
-# decomposition).  +126 MB of state at 63M buys those passes back.
+# (disease.rs:47-71 resets at exposed/infected_time); the citizen-order lane
+# is carried int32, the replicated-order twins int16.  Neither width has yet
+# been measured against the other on the GPU.
 TIMER_DTYPE = jnp.int32
-#: The replicated-order twin timer lanes stay int16: they never cross the
-#: Mosaic kernel boundary (their converts fuse into the advance/store XLA
-#: passes), and the twins are copied at cond boundaries every step in the
-#: vax-live regime — half-width halves that copy traffic.
 TIMER_TWIN_DTYPE = jnp.int16
 
 
@@ -295,18 +288,13 @@ class SimConfig:
     #: Dispatch single-device steps to the gather-free fast path
     #: (engine/fastpath.py) when the world carries fast tables.
     use_fast_path: bool = True
-    #: Use the fused Pallas run-total kernels (ops/pallas_scans.py) for the
-    #: work-side building/room infected counts.  None = auto (on when the
-    #: default backend is a TPU); the XLA scan formulation remains the
-    #: portable fallback.
-    use_pallas_scans: bool | None = None
     #: Fuse the every-step citizen phase (timers, movement, census,
-    #: household window, home draw, cond packing) into one Pallas kernel
-    #: (ops/pallas_citizen.py).  None = auto (on on TPU for worlds with
-    #: max_household_size <= 24).  NOTE: the fused kernel draws home
-    #: exposures from counter-hash uniforms instead of threefry, so
-    #: trajectories differ stream-wise (not distributionally) from the
-    #: unfused path.
+    #: household window, home draw, cond packing) into one pass
+    #: (ops/citizen.py).  Its per-step counts route the sortless work and
+    #: bus levers (use_sortless_dense / use_sortless_work / sparse apply),
+    #: which need it.  None = auto (epidemicsimulator_tpu/backend.py: on
+    #: for worlds with max_household_size <= 24).  Both formulations give
+    #: bitwise-identical trajectories.
     use_fused_citizen: bool | None = None
     reference_mask_semantics: bool = True
     #: Replicate the reference's `exposure_total as u8` truncation
@@ -323,51 +311,40 @@ class SimConfig:
     #: Maintain disease state replicated in citizen, work and rider orders
     #: and move only the per-step deltas (new exposures / vaccinations /
     #: work hits) between them via K-bounded sparse transports — this
-    #: removes the three N-sized permutation sorts from the hot loop
-    #: (docs/PERF.md).  None = auto: on for populations <= 8M (4.09 -> 4.06
-    #: ms/step at Y&H scale) and off beyond (the every-step twin upkeep
-    #: measured 29 -> 55 ms/step at 63M); the ensemble runner forces False
-    #: because lax.cond flattens to both-branches inside vmap.
-    #: Trajectories are bitwise-identical to the classic fast path.
+    #: removes the three N-sized permutation sorts from the hot loop.
+    #: None = auto: off (an opt-in formulation).  Trajectories are
+    #: bitwise-identical to the classic fast path.
     use_replicated_orders: bool | None = None
-    #: Carry the five schedule bools packed in ONE s8 lane through the
+    #: Carry the five schedule bools packed in ONE int8 lane through the
     #: fused chunk scan (state.py::pack_sched).  None = auto: on for
-    #: >= 16M citizens, where it cuts kernel I/O + boundary conversions
-    #: (63M lean: 8.7 -> 6.5 ms/step) but measured ~0.5 ms/step SLOWER in
-    #: the Y&H replicated-order regime (docs/PERF.md).  The kernel always
-    #: speaks packed; this only selects the carry representation.
+    #: >= 16M citizens (a rule not yet measured on the GPU).  The fused
+    #: citizen phase always speaks packed; this only selects the carry
+    #: representation.
     use_packed_sched: bool | None = None
     #: Slot count K for the sparse cross-order transports; steps with more
     #: new exposures than this fall back to the dense permutation sort.
     sparse_transport_slots: int = 2048
     #: Apply the gated work/bus exposure hits (and the vaccine-pool prunes
     #: they imply) as K-bounded scatters instead of N-wide select chains:
-    #: the fused kernel already applies home hits in-pass, the work branch
-    #: returns its work-order hit mask (no N-sized backward permutation
-    #: sort), and a while-loop drains hits ``apply_sparse_slots`` at a time
-    #: (exact at any count; >1 round only past K hits per step).  Requires
-    #: the fused citizen kernel; incompatible with use_replicated_orders
-    #: (which carries its own delta transport).  The trade is
-    #: regime-dependent: at 63M sparse wins moving hours (112 -> 73
-    #: ms/step mixed regime) but loses lockdown hours (6.0 -> 11.1 — the
-    #: K-scatters cost ~5 ms/step of full-lane operand copies even at
-    #: zero hits), and at Y&H dense wins both regimes.  None = auto:
-    #: dense here.  The regime-adaptive dense/sparse dispatch of rounds
-    #: 2-3 is retired while the dense sortless branches are active (they
-    #: win every measured regime — docs/PERF.md "dispatch retired,
-    #: second attempt"); it remains as a legacy pair when sortless-dense
-    #: is unavailable.  Trajectories are bitwise-identical either way.
+    #: the fused citizen phase already applies home hits in-pass, the work
+    #: branch returns its work-order hit mask (no N-sized backward
+    #: permutation sort), and a while-loop drains hits
+    #: ``apply_sparse_slots`` at a time (exact at any count; >1 round only
+    #: past K hits per step).  Requires the fused citizen phase;
+    #: incompatible with use_replicated_orders (which carries its own delta
+    #: transport).  None = auto: dense.  engine.scan keeps a legacy
+    #: regime-adaptive dense/sparse pair for >= 16M worlds where the dense
+    #: sortless branches are off.  Trajectories are bitwise-identical
+    #: either way.
     use_sparse_apply: bool | None = None
     #: Hits applied per scatter round of the sparse apply path.
     apply_sparse_slots: int = 8192
     #: Dense work branch only: ship work hits back to citizen order via
     #: K-bounded compaction + scatter through ``work_perm`` (hits per
-    #: step are few) instead of the full backward u32 permutation sort —
-    #: the dominant remaining Y&H work-hour cost (2.79 ms/sort,
-    #: docs/PERF.md xplane decomposition).  Exact at any hit count: past
-    #: ``workback_slots`` hits an inner cond falls back to the sort, so
-    #: trajectories are bitwise-identical either way (tested).  None =
-    #: auto (resolution recorded with its measurement in docs/PERF.md).
+    #: step are few) instead of the full backward u32 permutation sort.
+    #: Exact at any hit count: past ``workback_slots`` hits an inner cond
+    #: falls back to the sort, so trajectories are bitwise-identical
+    #: either way (tested).  None = auto: on.
     use_sparse_workback: bool | None = None
     #: Hit slots of the dense-branch sparse work-back compaction.
     workback_slots: int = 8192
@@ -376,74 +353,55 @@ class SimConfig:
     #: hits scattered straight back to citizen order) on hours whose
     #: contributor count fits ``sortless_slots * sortless_max_rounds``;
     #: heavier hours route to the sorted branch via the dispatch switch.
-    #: Bitwise-identical to the sorted dense branch (same streams, same
-    #: hit set; tested).  None = auto: ON at every scale (Y&H bench
-    #: 3.17 -> 2.62 ms/step; 63M moving 23.91 — the fastest executable
-    #: of any formulation — and 63M lockdown 9.04 vs 9.15 sorted, all
-    #: measured AFTER the rider-statics hoist; docs/PERF.md "dispatch
-    #: retired, second attempt").  When active, engine.scan retires the
-    #: regime-adaptive dispatch: one executable serves both regimes.
+    #: Requires the fused citizen phase.  Bitwise-identical to the sorted
+    #: dense branch (same streams, same hit set; tested).  None = auto: on
+    #: at every scale.  When active, engine.scan runs one executable for
+    #: every regime.
     use_sortless_dense: bool | None = None
     #: SHARDED engine only: run the sortless work/bus formulations inside
     #: the shard_map step (carried slot-space schedule lanes, contributor
     #: drains with ghost-bit merges, deferred susceptibility).
     #: Bitwise-identical to the sorted sharded branches (tested on the
-    #: CPU mesh) but measured SLOWER on the 1-device TPU proxy (14.5 vs
-    #: 8.4 ms/step — docs/PERF.md "Negative result: sortless sharded
-    #: branches"), so None = auto: OFF.  Kept as an opt-in for re-testing
-    #: on real multi-chip meshes where the sort/drain trade may differ.
+    #: CPU mesh).  None = auto: off; not yet measured on a GPU mesh.
     use_sortless_sharded: bool | None = None
     #: Sortless work branch (sparse-apply path only): replace the forward
-    #: N-sized u32 permutation sort — the dominant moving-hour cost at 63M
-    #: (docs/PERF.md xplane decomposition) — with K-bounded drains: the
-    #: infected work-contributor bits scatter into work order through the
-    #: static ``wpos`` lane, and the post-draw hit candidates (``u < q``,
-    #: already a tiny set) compact back through ``work_perm``.
-    #: Bitwise-identical to the sorted formulation (same pressure tables,
-    #: same counter-hash streams, same hit set).  Peak hours whose
-    #: contributor count exceeds ``sortless_slots * sortless_max_rounds``
-    #: are routed to the sorted branch by the caller's dispatch
-    #: ``lax.switch`` (fastpath §7/§8); only the bus side's rare
-    #: post-draw candidate overflow pays an inner fallback cond.
-    #: None = auto: on for populations
-    #: >= 16M when the sparse apply is active (the regime-adaptive
-    #: dispatcher's moving executable).
+    #: N-sized u32 permutation sort with K-bounded drains: the infected
+    #: work-contributor bits scatter into work order through the static
+    #: ``wpos`` lane, and the post-draw hit candidates (``u < q``, already
+    #: a tiny set) compact back through ``work_perm``.  Bitwise-identical
+    #: to the sorted formulation (same pressure tables, same counter-hash
+    #: streams, same hit set).  Peak hours whose contributor count exceeds
+    #: ``sortless_slots * sortless_max_rounds`` are routed to the sorted
+    #: branch by the caller's dispatch ``lax.switch`` (fastpath §7/§8);
+    #: only the bus side's rare post-draw candidate overflow pays an inner
+    #: fallback cond.  None = auto: on for populations >= 16M when the
+    #: sparse apply is active (a rule not yet measured on the GPU).
     use_sortless_work: bool | None = None
     #: Contributor/candidate positions drained per round of the sortless
-    #: transports.  8192 measured best at 63M (32768 was neutral: the
-    #: 4x per-round hierarchy work cancels the saved while-loop scalar
-    #: round-trips — docs/PERF.md).
+    #: transports.
     sortless_slots: int = 8192
     #: Sorted-formulation routing bound for the sortless transports, in
     #: units of ``sortless_slots`` (the drains stay exact at any count;
-    #: past this many rounds of work the sorts are simply cheaper).  The
-    #: economics are SCALE-dependent — a drain round costs ~the same at
-    #: any N while the sort it replaces grows with N — so None = auto:
-    #: 16 below 16M citizens, 64 at >=16M (measured at 63M high
-    #: prevalence: the wider bound takes the late-epidemic moving hours
-    #: from 72.95 to 60.79 ms/step, bitwise — docs/PERF.md).
+    #: past this many rounds of work the sorts are simply cheaper).  A
+    #: drain round costs about the same at any N while the sort it
+    #: replaces grows with N, so None = auto: 16 below 16M citizens, 64 at
+    #: >= 16M (a rule not yet measured on the GPU).
     sortless_max_rounds: int | None = None
-    #: Rows per grid step of the fused citizen kernel ((rows, 128) tiles).
-    #: 1024 measured best at 63M (9.4 -> 8.8 ms/step lean; 2048+ exceeds
-    #: VMEM and fails Mosaic compile) and is neutral at Y&H (docs/PERF.md).
-    fused_block_rows: int = 1024
     #: Slot bound for the sparse per-OA home-exposure recording path
     #: (fastpath §9: compact hit positions + K-bounded scatter-add instead
     #: of cumsum + boundary gathers).  None = auto: 8192 for populations
-    #: >= 16M (where the dense cumsum+gather extraction costs ~10 ms/step)
-    #: and off below (the K-sized machinery loses to the small dense path
-    #: at region scale — docs/PERF.md).  0 disables.
+    #: >= 16M and off below (a rule not yet measured on the GPU).
+    #: 0 disables.
     oa_sparse_slots: int | None = None
     #: Debug/test only: override the bus-hit slot bound (k_bt, normally
     #: min(16384, n_riders)).  A tiny value forces the sortless bus
     #: branch's post-draw candidate-overflow fallback cond — unreachable
     #: below 16384 riders otherwise — so tests can pin its equivalence.
     debug_bus_hit_slots: int | None = None
-    #: Debug/probe only: (work, bus) lax.cond gate forcings for the fast
-    #: path — None leaves a gate on its computed predicate, True/False pins
-    #: it.  Forcing a gate False skips that exposure source (NOT
-    #: semantics-preserving); used by tools/probe_uk.py for subtractive
-    #: step-budget measurements.
+    #: Debug only: (work, bus) lax.cond gate forcings for the fast path —
+    #: None leaves a gate on its computed predicate, True/False pins it.
+    #: Forcing a gate False skips that exposure source (NOT
+    #: semantics-preserving); for subtractive step-budget measurements.
     debug_force_gates: tuple | None = None
     #: Static upper bound on vaccinations per step (sizes the on-device top-k
     #: selection; the traced DiseaseParams.vaccination_rate must not exceed
@@ -456,26 +414,23 @@ class SimConfig:
     #: ``eligible`` lane), and take the first k distinct — a uniform
     #: k-subset of the current pool, i.e. the SAME LAW as the default
     #: fresh-threshold selector, for both faithful and intended pool
-    #: semantics.  All per-step work is K-sized (~0.3 ms at any scale vs
-    #: ~5 ms/step at 63M for the pool-wide search); a lax.cond falls back
-    #: to the threshold selector on candidate shortfall (exactness
-    #: preserved — the fallback is also a uniform k-subset).  Changes which
+    #: semantics.  All per-step work is K-sized; a lax.cond falls back to
+    #: the threshold selector on candidate shortfall (exactness preserved
+    #: — the fallback is also a uniform k-subset).  Changes which
     #: individual citizens are picked (different draw stream), so
     #: trajectories differ from the default mode but match in law.
     #: Requires init_state(..., fixed_priority_vax=True) for the lanes.
-    #: None = auto: on for fast-path worlds with >= 16M citizens, where the
-    #: pool-wide threshold search costs ~5 ms/step (63M: 15.6 -> 11.6
-    #: ms/step) while the sampled path stays K-sized; below that scale the
-    #: default selector is cheaper (docs/PERF.md Y&H negative result).
+    #: None = auto: on for fast-path worlds with >= 16M citizens, where
+    #: the pool-wide threshold search grows with N (a rule not yet
+    #: measured on the GPU).
     vaccination_fixed_priority: bool | None = None
     #: Sharded engine's exact-k vaccination selector
     #: (ops/select.py::kth_threshold_sharded): None = auto — the
     #: sampled-band search (3 collective rounds: sample all_gather, packed
     #: psum, band all_gather) when the per-shard sample stride is >= 4,
     #: else the 32-round psum bisection.  True/False pins the branch
-    #: (tests / A/B probes).  Both return the identical exact threshold,
-    #: so trajectories are bitwise-independent of the setting
-    #: (docs/PERF.md "Sharded vaccination selector").
+    #: (tests / A/B runs).  Both return the identical exact threshold,
+    #: so trajectories are bitwise-independent of the setting.
     use_sampled_vax_sharded: bool | None = None
     #: log2 of the per-shard sample size the sharded sampled-band selector
     #: draws (default 2^17 per shard; the auto rule above keeps
@@ -492,22 +447,20 @@ class SimConfig:
     #: True so an R-replica run matches the single-device R-packing
     #: bitwise at any mesh size.
     id_keyed_ensemble_rng: bool | None = None
-    #: Debug/probe only (tools/probe_fastmesh_1dev.py --gates parts):
-    #: bitmask subtracting pieces of the SHARDED step's base budget for the
-    #: per-collective cost table (docs/PERF.md).  bit0: psum/all_gather
-    #: collectives become local values (value-identical on a 1-device
-    #: mesh), bit1: ghost all_to_all machinery skipped (value-identical
-    #: when no cross-shard worker exists), bit2: the idempotent
-    #: hit-combine re-apply after the gated sides skipped (value-identical
-    #: in the fused moving regime with both sides forced off and
-    #: vaccination disabled).  -1 = all real.  NOT semantics-preserving
-    #: outside those regimes.
+    #: Debug only: bitmask subtracting pieces of the SHARDED step for a
+    #: per-collective cost table.  bit0: psum/all_gather collectives
+    #: become local values (value-identical on a 1-device mesh), bit1:
+    #: ghost all_to_all machinery skipped (value-identical when no
+    #: cross-shard worker exists), bit2: the idempotent hit-combine
+    #: re-apply after the gated sides skipped (value-identical in the
+    #: fused moving regime with both sides forced off and vaccination
+    #: disabled).  -1 = all real.  NOT semantics-preserving outside those
+    #: regimes.
     debug_shard_parts: int = -1
-    #: Debug/probe only: bitmask subtracting pieces of the vaccinate branch
-    #: (NOT semantics-preserving; tools/probe_vax_parts.py).  bit0: real
-    #: exact-k selector (else a fixed-threshold fake), bit1: apply the
-    #: status/eligible updates, bit2: replicated-order fan-out of the
-    #: chosen lane.  -1 = all real.
+    #: Debug only: bitmask subtracting pieces of the vaccinate branch
+    #: (NOT semantics-preserving).  bit0: real exact-k selector (else a
+    #: fixed-threshold fake), bit1: apply the status/eligible updates,
+    #: bit2: replicated-order fan-out of the chosen lane.  -1 = all real.
     debug_vax_parts: int = -1
     bus_capacity: int = BUS_CAPACITY
     starting_infected: int = STARTING_INFECTED_COUNT

@@ -1,7 +1,8 @@
 """ctypes bindings to the native geometry engine (native/esucd_native.cc).
 
-Compiles on demand with g++ if the shared library is missing (no pybind11 in
-this environment; plain C ABI + ctypes).
+The shared library is built from source (g++, plain C ABI + ctypes) at
+first use, and rebuilt whenever the source is newer than it.  It is a build
+product that git ignores.
 """
 
 from __future__ import annotations
@@ -33,12 +34,16 @@ def load_library():
     if _LIB is not None:
         return _LIB
     path = _lib_path()
-    if not os.path.exists(path):
-        src = os.path.join(_repo_root(), "native", "esucd_native.cc")
+    src = os.path.join(_repo_root(), "native", "esucd_native.cc")
+    if not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(src):
+        # build beside the target, then rename: concurrent first uses never
+        # load a half-written library
+        tmp = f"{path}.{os.getpid()}.tmp"
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", path, src, "-lz"],
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp, src, "-lz"],
             check=True,
         )
+        os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     lib.esucd_parse_pbf.restype = ctypes.c_int
     lib.esucd_parse_pbf.argtypes = [

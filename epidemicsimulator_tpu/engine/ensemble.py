@@ -102,8 +102,8 @@ def make_ensemble_runner(world: World, cfg: SimConfig):
             return ns, jnp.transpose(seirv_t, (1, 0, 2))
 
         # Same provenance pin as make_chunk_runner: device-built worlds are
-        # committed=True and would otherwise specialize a pathological
-        # executable (fired lax.conds stall ~55 ms; see engine/scan.py).
+        # committed=True and would otherwise specialize a second executable
+        # (see engine/scan.py).
         s = jax.sharding.SingleDeviceSharding(jax.devices()[0])
         jitted = jax.jit(
             chunk, donate_argnums=(4,), in_shardings=(s, s, s, s, s)
@@ -137,9 +137,9 @@ def run_ensemble(
     """Run R replicates to max_steps; returns (R, T, 5) SEIRV series.
 
     ``engine="packed"`` (default) tiles the replicas into ONE world and
-    steps them with the fused fast-path formulation (engine/packed.py) —
-    measured ~1.8x the vmapped engine's throughput at 64 x 208k
-    (docs/PERF.md "Packed-replica ensembles").  ``engine="vmap"`` keeps
+    steps them with the fused fast-path formulation (engine/packed.py);
+    the two engines' throughput is not yet measured on the GPU.
+    ``engine="vmap"`` keeps
     the vmapped formulation (stacked Params pytree, one compilation) —
     the right tool when replicas must share a device-resident world
     (e.g. very large base worlds where R tiled copies exceed HBM).

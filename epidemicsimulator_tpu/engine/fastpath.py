@@ -16,7 +16,7 @@ counts and bookkeeping changes:
   top_k + scatter.
 
 Everything per-citizen is elementwise, scans, or sorts — no random access
-proportional to N.  Measured on TPU v5e this is ~10x the portable step.
+proportional to N.
 """
 
 from __future__ import annotations
@@ -37,8 +37,11 @@ from ..config import (
     Params,
     SimConfig,
 )
+from ..backend import use_fused_citizen
 from ..ops.maths import binomial_at_least_one, truncate_u8
-from ..ops.runsums import permute_by_sort, range_totals, run_totals
+from ..ops.runsums import (
+    permute_by_sort, range_totals, run_totals, run_totals_multi,
+)
 from ..ops.segments import bus_hits
 from ..world.schema import World
 from .state import SimState
@@ -90,6 +93,22 @@ def _exposure_p(exposure_chance, mask_effectiveness, mask_status, compliant,
     )
 
 
+def _work_pressure(world, contrib_ws):
+    """Work-order infected counts per workplace building and the number
+    of draws each worker takes: one per infected building, or one per
+    infected room-mate at school (building.rs:278-280, 494-522;
+    simulator.rs:307-308).  Returns ``(n_building, draws)``."""
+    n_b, n_room = run_totals_multi(
+        contrib_ws,
+        [
+            (world.ws_wb_start_mask, world.ws_wb_end_mask),
+            (world.ws_room_start_mask, world.ws_room_end_mask),
+        ],
+    )
+    draws = jnp.where(world.ws_is_school, n_room, (n_b > 0).astype(jnp.int32))
+    return n_b, draws
+
+
 def _kth_score_threshold(scores_u32, eligible, k):
     """Smallest uint32 t with |{eligible & score <= t}| >= k, plus the count
     strictly below t — for exact-k tie handling.  32 compare+reduce passes."""
@@ -112,17 +131,11 @@ def _kth_score_threshold(scores_u32, eligible, k):
 
 
 def wants_fused_citizen(world: World, cfg: SimConfig) -> bool:
-    """Whether fast_step will use the fused citizen-phase kernel — callers
-    that scan many steps prebuild CitizenStatics when this is True."""
+    """Whether fast_step will use the fused citizen phase — callers that
+    scan many steps prebuild CitizenStatics when this is True."""
     if not (cfg.use_fast_path and world.has_fast_tables):
         return False
-    use_pallas = cfg.use_pallas_scans
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    use_fused = cfg.use_fused_citizen
-    if use_fused is None:
-        use_fused = use_pallas and 0 < world.max_household_size <= 24
-    return bool(use_fused)
+    return use_fused_citizen(cfg, world.max_household_size)
 
 
 def wants_replicated(world: World, cfg: SimConfig, state: SimState) -> bool:
@@ -130,14 +143,8 @@ def wants_replicated(world: World, cfg: SimConfig, state: SimState) -> bool:
     present + enabled).  Chunk runners use this to prebuild rider statics."""
     rep = cfg.use_replicated_orders
     if rep is None:
-        # Auto: OFF everywhere since the packed-sched kernel pass.  The
-        # replicated engine's original win was marginal (4.09 -> 4.06
-        # ms/step at 3.46M) and it LOSES under the packed kernel interface
-        # (4.83 rep vs 3.80 non-rep in one-process A/B,
-        # tools/probe_yh_norep.py; per-step twin copies + inflated
-        # compaction fusions — docs/PERF.md), on top of its documented
-        # loss at UK scale (29 -> 55 ms/step).  Kept as an explicit
-        # opt-in formulation; trajectories are bitwise-identical.
+        # Auto: off.  An explicit opt-in formulation; trajectories are
+        # bitwise-identical to the classic one.
         rep = False
     return (
         bool(rep)
@@ -152,8 +159,8 @@ def wants_replicated(world: World, cfg: SimConfig, state: SimState) -> bool:
 
 def wants_packed_sched(world: World, cfg: SimConfig) -> bool:
     """Whether the fused chunk runner carries the packed schedule lane.
-    Auto (None): on >= 16M citizens (docs/PERF.md: 2.3 ms/step win at 63M,
-    ~0.5 ms/step loss at Y&H under the replicated-order engine)."""
+    Auto (None): on >= 16M citizens (a rule not yet measured on the
+    GPU)."""
     ps = cfg.use_packed_sched
     if ps is None:
         ps = world.n_citizens >= 16_000_000
@@ -164,7 +171,8 @@ def wants_fixed_priority_vax(world: World, cfg: SimConfig) -> bool:
     """Whether the sampled (pool-draw) vaccination selector should be used —
     init_state callers use this to allocate the pool lanes.  Auto (None):
     on for fast-path worlds >= 16M citizens, where the default selector's
-    pool-wide threshold search dominates the step (docs/PERF.md)."""
+    pool-wide threshold search grows with N (a rule not yet measured on
+    the GPU)."""
     fp = cfg.vaccination_fixed_priority
     if fp is None:
         fp = world.n_citizens >= 16_000_000
@@ -174,21 +182,16 @@ def wants_fixed_priority_vax(world: World, cfg: SimConfig) -> bool:
 def wants_sparse_apply(world: World, cfg: SimConfig, state: SimState) -> bool:
     """Whether fast_step applies the gated work/bus hits as K-bounded
     scatters (SimConfig.use_sparse_apply).  Requires the fused citizen
-    kernel (which applies home hits in-pass and reports their count in
-    partials[:, 7]) and the classic (non-replicated) formulation; the
+    phase (which applies home hits in-pass and reports their count in
+    its counts[:, 7]) and the classic (non-replicated) formulation; the
     legacy no-OA-table per-OA recording branch still needs dense hit
     lanes, so it opts out too.
 
-    The trade is REGIME-dependent, not just scale-dependent (docs/PERF.md):
-    at 63M the sparse apply wins moving hours big (112 -> 73 ms/step mixed
-    regime) but LOSES lockdown hours (6.0 -> 11.1 ms/step — its K-bounded
-    scatters and drain loops cost ~5 ms/step of XLA full-lane operand
-    copies even at zero hits), and at Y&H it loses in both regimes.  Auto
-    (None) therefore resolves to the dense apply here; ``engine.scan.run``
-    layers regime-adaptive dispatch on top for big worlds (dense executable
-    while lockdown holds, sparse once movement resumes) — the two
-    formulations are bitwise-identical, so switching per chunk is free of
-    semantic risk."""
+    Auto (None) resolves to the dense apply; ``engine.scan.run`` can layer
+    regime-adaptive dispatch on top for big worlds (dense executable while
+    lockdown holds, sparse once movement resumes) — the two formulations
+    are bitwise-identical, so switching per chunk is free of semantic
+    risk."""
     sa = cfg.use_sparse_apply
     if sa is None:
         sa = False
@@ -204,8 +207,7 @@ def wants_sortless_work(world: World, cfg: SimConfig, state: SimState) -> bool:
     """Whether the sparse-apply work branch runs the sortless formulation
     (SimConfig.use_sortless_work).  Auto (None): on for populations >=
     16M — i.e. the regime-adaptive dispatcher's moving executable at UK
-    scale, where the forward work-order permutation sort dominates every
-    moving hour (docs/PERF.md)."""
+    scale (a rule not yet measured on the GPU)."""
     sl = cfg.use_sortless_work
     if sl is None:
         sl = world.n_citizens >= 16_000_000
@@ -216,21 +218,14 @@ def wants_sortless_dense(world: World, cfg: SimConfig, state: SimState) -> bool:
     """Whether the DENSE apply's work branch runs the sortless formulation
     (SimConfig.use_sortless_dense): the same K-bounded drains as the
     sparse path's sortless branch, with hits scattered straight back to
-    citizen order.  Requires the fused kernel (contributor counts from
-    the partials lane route the dispatch switch) and the classic
+    citizen order.  Requires the fused citizen phase (its contributor
+    counts route the dispatch switch) and the classic
     formulation; mutually exclusive with the sparse apply by construction
     (that path has its own sortless branch)."""
     sd = cfg.use_sortless_dense
     if sd is None:
-        # Auto: ON at every scale.  Y&H bench 3.17 -> 2.62 ms/step; 63M
-        # pinned moving 23.91 ms/step (the best executable of any
-        # formulation) and 63M lockdown window 9.04 vs 9.15 sorted — all
-        # bitwise.  An earlier >=16M gate reacted to a 9.1 -> 17.6
-        # "switch overhead" regression that was actually the per-chunk
-        # rider-statics gathers since hoisted to runner build
-        # (docs/PERF.md "rider-statics hoist"); with the hoist the
-        # sortless executable wins or ties every measured regime, so the
-        # regime-adaptive dispatch is retired (engine/scan.py).
+        # Auto: on at every scale; one executable serves every regime
+        # (engine/scan.py).
         sd = True
     return (
         bool(sd)
@@ -243,9 +238,8 @@ def wants_sortless_dense(world: World, cfg: SimConfig, state: SimState) -> bool:
 
 def sortless_rounds(n_citizens: int, cfg: SimConfig) -> int:
     """Resolved ``sortless_max_rounds`` (None = auto: 16 below 16M, 64 at
-    >=16M — a drain round costs ~the same at any N while the sort it
-    replaces grows with N; measured at 63M high prevalence 72.95 -> 60.79
-    ms/step, docs/PERF.md)."""
+    >=16M — a drain round costs about the same at any N while the sort it
+    replaces grows with N; not yet measured on the GPU)."""
     r = cfg.sortless_max_rounds
     if r is None:
         r = 64 if n_citizens >= 16_000_000 else 16
@@ -278,39 +272,21 @@ def fast_step(
     passes batch-wide predicates computed OUTSIDE vmap so the conds stay
     conds instead of flattening into selects.
 
-    ``fused_statics``: prebuilt :class:`~..ops.pallas_citizen.CitizenStatics`
-    (padded/reshaped static lanes) for the fused citizen-phase kernel; the
-    chunk runner builds them once outside its scan.  Built inline if None.
+    ``fused_statics``: prebuilt :class:`~..ops.citizen.CitizenStatics`
+    (bit-packed static lanes) for the fused citizen phase; the chunk
+    runner builds them once outside its scan.  Built inline if None.
     """
     d = params.disease
     th = params.thresholds
     n = world.n_citizens
-    use_pallas = cfg.use_pallas_scans
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from ..ops.pallas_scans import range_totals_pallas as _range_totals
-    else:
-        _range_totals = range_totals
     K = world.max_household_size
-    use_fused = cfg.use_fused_citizen
-    if use_fused is None:
-        use_fused = use_pallas and 0 < K <= 24
-    if use_fused and not 0 < K <= 24:
-        raise ValueError(
-            "use_fused_citizen requires 0 < max_household_size <= 24"
-        )
+    use_fused = use_fused_citizen(cfg, K)
 
     hour = state.hour + 1
     key = jax.random.fold_in(state.rng_key, hour)
     k_bus, k_h, k_w, k_b, k_vax = jax.random.split(key, 5)
-    # Derive every cond branch's RNG seed here and close over the ready
-    # u32 scalars.  Hygiene, not the stall fix: tools/probe_vax_parts2
-    # showed a fired vaccinate-cond costs ~55 ms/step even when its branch
-    # body is trivial and all seeds are pre-derived (59.6 fired vs 5.0
-    # unfired ms/step within ONE executable) — the firing itself stalls
-    # this runtime, hence the unconditional formulation selected by
-    # engine/scan.py once vaccination latches (docs/PERF.md).
+    # Derive every cond branch's RNG seed here, at the top level of the
+    # step, and close over the ready u32 scalars.
     seed_w = jax.random.bits(k_w, (), jnp.uint32)
     seed_vax0 = jax.random.bits(k_vax, (), jnp.uint32)
     seed_vax1 = jax.random.bits(jax.random.fold_in(k_vax, 1), (), jnp.uint32)
@@ -321,79 +297,54 @@ def fast_step(
         return truncate_u8(x) if cfg.reference_u8_truncation else x
 
     if use_fused:
-        # Stages 1-4 + the cond-operand packing fused into one Pallas pass
-        # (ops/pallas_citizen.py).  The home draw uses counter-hash
-        # uniforms seeded from this step's threefry key.
-        from ..ops.pallas_citizen import citizen_phase, make_citizen_statics
+        # Stages 1-4 + the cond-operand packing in one fused pass
+        # (ops/citizen.py), home hits applied in-pass.
+        from ..ops.citizen import citizen_phase, make_citizen_statics
+        from .state import pack_sched, sched_packed
 
         statics = (
             fused_statics if fused_statics is not None
             else make_citizen_statics(world)
         )
-        seed = jax.random.bits(k_h, (), jnp.uint32)
-        ints = jnp.stack([
-            h24.astype(jnp.int32),
-            move.astype(jnp.int32),
-            state.mask_status.astype(jnp.int32),
-            jax.lax.bitcast_convert_type(seed, jnp.int32),
-            jnp.asarray(d.exposed_time, jnp.int32),
-            jnp.asarray(d.infected_time, jnp.int32),
-            jnp.int32(0), jnp.int32(0),
-        ])
-        f32s = jnp.stack([
-            jnp.asarray(d.exposure_chance, jnp.float32),
-            jnp.asarray(1.0, jnp.float32)
-            - jnp.asarray(d.mask_effectiveness, jnp.float32),
-        ])
-        from .state import pack_sched, sched_packed
-
         packed_carry = sched_packed(state)
         sched_in = state.sched if packed_carry else pack_sched(state).sched
         (status, timer, sched1, fwd_packed, partials) = citizen_phase(
             statics,
             state.status, state.timer, sched_in,
-            ints, f32s,
+            h24=h24, move=move, mask_status=state.mask_status,
+            seed=jax.random.bits(k_h, (), jnp.uint32),
+            exposed_time=d.exposed_time, infected_time=d.infected_time,
+            exposure_chance=d.exposure_chance,
+            mask_effectiveness=d.mask_effectiveness,
             K=K,
             ref_mask_sem=cfg.reference_mask_semantics,
             u8_trunc=cfg.reference_u8_truncation,
-            block_rows=cfg.fused_block_rows,
-            interpret=jax.default_backend() != "tpu",
-            n_citizens=n,
         )
-        # status/timer/sched1 may be (rows, 128) tiles (the packed-2D scan
-        # carry, state.py::to_2d_carry) — every elementwise consumer below
-        # is shape-agnostic; the few 1D interactions flatten explicitly.
-        # The kernel already folded this step's home hits into status/timer;
-        # hit_home survives as bit 2 of fwd_packed (the dense re-apply below
-        # is idempotent, so both apply modes are bitwise-identical).
+        # hit_home survives as bit 2 of fwd_packed (the dense re-apply
+        # below is idempotent, so both apply modes are bitwise-identical).
         hit_home = (fwd_packed & 4) != 0
-        packed2d = getattr(status, "ndim", 1) == 2
         seirv0 = jnp.sum(partials[:, :5], axis=0)
         n_home = jnp.sum(partials[:, 7])
         work_pred_default = jnp.sum(partials[:, 5]) > 0
         bus_pred_default = jnp.sum(partials[:, 6]) > 0
         timer = jnp.asarray(timer, jnp.int32)
 
-        def _sched_flat():
-            return sched1.reshape(-1)[:n] if packed2d else sched1
-
         # Unpacked views: materialised ONLY where eagerly needed (the
         # replicated engine / legacy bool-lane carry); the gated work/bus
         # branches unpack inside their cond bodies so the bits never
         # materialise on skipped steps.
         if rep_needed := wants_replicated(world, cfg, state):
-            at_work_ws = (_sched_flat() & 8) != 0
-            on_bus_ws = (_sched_flat() & 16) != 0
+            at_work_ws = (sched1 & 8) != 0
+            on_bus_ws = (sched1 & 16) != 0
         if not packed_carry:
-            at_work = (_sched_flat() & 1) != 0
-            on_bus = (_sched_flat() & 2) != 0
-            bus_to_work = (_sched_flat() & 4) != 0
+            at_work = (sched1 & 1) != 0
+            on_bus = (sched1 & 2) != 0
+            bus_to_work = (sched1 & 4) != 0
             if not rep_needed:
-                at_work_ws = (_sched_flat() & 8) != 0
-                on_bus_ws = (_sched_flat() & 16) != 0
+                at_work_ws = (sched1 & 8) != 0
+                on_bus_ws = (sched1 & 16) != 0
     else:
         packed_carry = False
-        packed2d = False
         from .state import sched_packed, unpack_sched
 
         if sched_packed(state):  # packed carry reached a non-fused step
@@ -456,7 +407,7 @@ def fast_step(
             0.0,
         )
         susceptible = status == STATUS_SUSCEPTIBLE
-        # Same counter-hash stream as the fused kernel (seed from k_h,
+        # Same counter-hash stream as the fused phase (seed from k_h,
         # indexed by citizen id): fused and non-fused home draws are
         # bitwise-identical, and the sharded fast path reproduces them by
         # hashing on its global-id lane (parallel/fastmesh.py).
@@ -468,7 +419,7 @@ def fast_step(
         )
 
         contrib_work = inf_active & at_work & work_neq_home
-        # one merged gates lane (same layout as the fused kernel's):
+        # one merged gates lane (same layout as the fused phase's):
         # bits 0-2 feed the work cond, bits 1/3/4 the bus cond
         fwd_packed = (
             contrib_work.astype(jnp.int8)
@@ -576,35 +527,12 @@ def fast_step(
         # work-order pressure + draw (building.rs:278-280 for workplaces;
         # school room confinement + whole-school n per building.rs:494-522 /
         # simulator.rs:307-308)
-        if use_pallas:
-            from ..ops.pallas_scans import run_totals_fused
-
-            n_w_ws, room_ws = run_totals_fused(
-                (fwd_ws & 1),
-                [
-                    (world.ws_wb_start_mask, world.ws_wb_end_mask),
-                    (world.ws_room_start_mask, world.ws_room_end_mask),
-                ],
-                tile_rows=512,
-            )
-        else:
-            cs_ws = jnp.cumsum(contrib_w_ws)
-            from ..ops.runsums import run_totals_from_cumsum
-
-            n_w_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws, world.ws_wb_start_mask, world.ws_wb_end_mask
-            )
-            room_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws, world.ws_room_start_mask, world.ws_room_end_mask
-            )
-        draws_ws = jnp.where(
-            world.ws_is_school, room_ws, (n_w_ws > 0).astype(jnp.int32)
-        )
+        n_w_ws, draws_ws = _work_pressure(world, contrib_w_ws)
         # schedule bits unpack INSIDE the branch (fused mode) so the lanes
         # never materialise on steps where the cond is skipped
         if use_fused:
-            at_work_ws_l = (_sched_flat() & 8) != 0
-            on_bus_ws_l = (_sched_flat() & 16) != 0
+            at_work_ws_l = (sched1 & 8) != 0
+            on_bus_ws_l = (sched1 & 16) != 0
         else:
             at_work_ws_l, on_bus_ws_l = at_work_ws, on_bus_ws
         p_ws = _exposure_p(
@@ -628,16 +556,15 @@ def fast_step(
         # (an N-sized reduce-window) only runs when the branch is live and
         # the cond returns an (n_oa,) table instead of an (N,) lane
         if record_oa:
-            oa_work = _range_totals(from_work_ws, world.ws_oa_lo, world.ws_oa_hi)
+            oa_work = range_totals(from_work_ws, world.ws_oa_lo, world.ws_oa_hi)
         else:
             oa_work = jnp.zeros((0,), jnp.int32)
 
         # ship the work hit back to citizen order.  Default: K-bounded
         # compaction of the (few) hit slots + scatter through work_perm
-        # (SimConfig.use_sparse_workback) — the backward u32 sort costs
-        # 2.79 ms at Y&H (docs/PERF.md xplane decomposition) while hits
-        # per hour are typically tens-to-thousands.  The >K fallback
-        # keeps the lane bitwise-identical at any hit count.
+        # (SimConfig.use_sparse_workback) instead of the backward u32
+        # sort: hits per hour are typically tens-to-thousands.  The >K
+        # fallback keeps the lane bitwise-identical at any hit count.
         swb = cfg.use_sparse_workback
         if swb is None:
             swb = True
@@ -671,30 +598,7 @@ def fast_step(
         susc_ws = (packed & 2) != 0
         hit_home_ws = (packed & 4) != 0
 
-        if use_pallas:
-            from ..ops.pallas_scans import run_totals_fused
-
-            n_w_ws, room_ws = run_totals_fused(
-                (packed & 1),
-                [
-                    (world.ws_wb_start_mask, world.ws_wb_end_mask),
-                    (world.ws_room_start_mask, world.ws_room_end_mask),
-                ],
-                tile_rows=512,
-            )
-        else:
-            cs_ws = jnp.cumsum(contrib_w_ws)
-            from ..ops.runsums import run_totals_from_cumsum
-
-            n_w_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws, world.ws_wb_start_mask, world.ws_wb_end_mask
-            )
-            room_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws, world.ws_room_start_mask, world.ws_room_end_mask
-            )
-        draws_ws = jnp.where(
-            world.ws_is_school, room_ws, (n_w_ws > 0).astype(jnp.int32)
-        )
+        n_w_ws, draws_ws = _work_pressure(world, contrib_w_ws)
         p_ws = _exposure_p(
             d.exposure_chance, d.mask_effectiveness, state.mask_status,
             world.ws_mask_compliant, on_bus_ws, cfg.reference_mask_semantics,
@@ -713,7 +617,7 @@ def fast_step(
         hit_work_ws = susc_ws & (u_w < q_work_ws)
         from_work_ws = hit_work_ws & ~hit_home_ws
         if record_oa:
-            oa_work = _range_totals(from_work_ws, world.ws_oa_lo, world.ws_oa_hi)
+            oa_work = range_totals(from_work_ws, world.ws_oa_lo, world.ws_oa_hi)
         else:
             oa_work = jnp.zeros((0,), jnp.int32)
 
@@ -744,32 +648,9 @@ def fast_step(
         susc_ws = (fwd_ws & 2) != 0
         hit_home_ws = (fwd_ws & 4) != 0
 
-        if use_pallas:
-            from ..ops.pallas_scans import run_totals_fused
-
-            n_w_ws, room_ws = run_totals_fused(
-                (fwd_ws & 1),
-                [
-                    (world.ws_wb_start_mask, world.ws_wb_end_mask),
-                    (world.ws_room_start_mask, world.ws_room_end_mask),
-                ],
-                tile_rows=512,
-            )
-        else:
-            cs_ws = jnp.cumsum(contrib_w_ws)
-            from ..ops.runsums import run_totals_from_cumsum
-
-            n_w_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws, world.ws_wb_start_mask, world.ws_wb_end_mask
-            )
-            room_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws, world.ws_room_start_mask, world.ws_room_end_mask
-            )
-        draws_ws = jnp.where(
-            world.ws_is_school, room_ws, (n_w_ws > 0).astype(jnp.int32)
-        )
-        at_work_ws_l = (_sched_flat() & 8) != 0
-        on_bus_ws_l = (_sched_flat() & 16) != 0
+        n_w_ws, draws_ws = _work_pressure(world, contrib_w_ws)
+        at_work_ws_l = (sched1 & 8) != 0
+        on_bus_ws_l = (sched1 & 16) != 0
         p_ws = _exposure_p(
             d.exposure_chance, d.mask_effectiveness, state.mask_status,
             world.ws_mask_compliant, on_bus_ws_l, cfg.reference_mask_semantics,
@@ -813,13 +694,13 @@ def fast_step(
                 oa_work = jax.lax.cond(
                     n_from_ws <= k_oa_w,
                     oa_work_sparse,
-                    lambda m: _range_totals(
+                    lambda m: range_totals(
                         m, world.ws_oa_lo, world.ws_oa_hi
                     ),
                     from_work_ws,
                 )
             else:
-                oa_work = _range_totals(
+                oa_work = range_totals(
                     from_work_ws, world.ws_oa_lo, world.ws_oa_hi
                 )
         else:
@@ -832,10 +713,9 @@ def fast_step(
         )
 
     def work_side_sortless(fwd, dense_out: bool = False):
-        # VERDICT-r2 #6 "sortless work branch".  Same pressure tables, hash
-        # streams and hit set as work_side_sparse — but the forward
-        # N-sized u32 permutation sort (the dominant 63M moving-hour cost,
-        # docs/PERF.md xplane decomposition) is replaced by two K-bounded
+        # Sortless work branch.  Same pressure tables, hash streams and
+        # hit set as work_side_sparse — but the forward N-sized u32
+        # permutation sort is replaced by two K-bounded
         # scatter/compact drains: (a) the infected work-contributor bits
         # scatter into work order through the static ``wpos`` lane, and
         # (b) the post-draw candidates (``u < q`` — already the tiny
@@ -845,16 +725,15 @@ def fast_step(
         # exact at ANY count (the drains loop to the exact popcount); the
         # caller's switch routes contributor-heavy peak hours to the
         # sorted body instead because rounds eventually cost more than
-        # one sort.  No lax.cond lives inside — every nested N-operand
-        # cond costs a full-lane copy per step (docs/PERF.md).
+        # one sort.  No lax.cond lives inside — a nested N-operand cond
+        # costs a full-lane copy per step.
         from ..ops.sparse import block_hierarchy, compact_from_hierarchy
 
         K_SL = max(1, min(cfg.sortless_slots, n))
         contrib_mask = (fwd & 1) != 0
         # one full-lane block pass, shared by every drain round (XLA does
-        # not hoist it out of the while body on its own — measured 466
-        # redundant passes/100 steps in the first-cut xplane trace).
-        # block/sb=128 halves the per-slot hierarchy work at this scale.
+        # not hoist it out of the while body on its own).  block/sb=128
+        # halves the per-slot hierarchy work.
         h_c = block_hierarchy(contrib_mask, block=128)
         n_oa_w = world.ws_oa_lo.shape[0] if record_oa else 0
 
@@ -876,34 +755,9 @@ def fast_step(
         )
         contrib_w_ws = contrib_ws8.astype(jnp.int32)
 
-        if use_pallas:
-            from ..ops.pallas_scans import run_totals_fused
-
-            n_w_ws, room_ws = run_totals_fused(
-                contrib_ws8,
-                [
-                    (world.ws_wb_start_mask, world.ws_wb_end_mask),
-                    (world.ws_room_start_mask, world.ws_room_end_mask),
-                ],
-                tile_rows=512,
-            )
-        else:
-            cs_ws = jnp.cumsum(contrib_w_ws)
-            from ..ops.runsums import run_totals_from_cumsum
-
-            n_w_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws,
-                world.ws_wb_start_mask, world.ws_wb_end_mask,
-            )
-            room_ws = run_totals_from_cumsum(
-                cs_ws, contrib_w_ws,
-                world.ws_room_start_mask, world.ws_room_end_mask,
-            )
-        draws_ws = jnp.where(
-            world.ws_is_school, room_ws, (n_w_ws > 0).astype(jnp.int32)
-        )
-        at_work_ws_l = (_sched_flat() & 8) != 0
-        on_bus_ws_l = (_sched_flat() & 16) != 0
+        n_w_ws, draws_ws = _work_pressure(world, contrib_w_ws)
+        at_work_ws_l = (sched1 & 8) != 0
+        on_bus_ws_l = (sched1 & 16) != 0
         p_ws = _exposure_p(
             d.exposure_chance, d.mask_effectiveness, state.mask_status,
             world.ws_mask_compliant, on_bus_ws_l,
@@ -996,10 +850,10 @@ def fast_step(
             # One switch, predicates all from already-materialised scalars
             # (partials[:, 5] is the exact contributor count in fused
             # mode) — nested N-operand conds each cost a full-lane copy
-            # per step (docs/PERF.md), so the sorted-fallback decision
-            # must NOT live inside the branch.
-            # sparse_apply requires the fused kernel (wants_sparse_apply),
-            # so the partials lane is always available here.
+            # per step, so the sorted-fallback decision must NOT live
+            # inside the branch.  sparse_apply requires the fused citizen
+            # phase (wants_sparse_apply), so its counts are always
+            # available here.
             assert use_fused
             tot_c_free = jnp.sum(partials[:, 5])
             bound_w = max(1, min(cfg.sortless_slots, n)) * sortless_rounds(
@@ -1034,7 +888,8 @@ def fast_step(
             # Same dispatch shape as the sparse path's sortless switch:
             # contributor-light hours run the drains (no forward sort),
             # heavy hours route to the sorted body; predicates come from
-            # the kernel partials so no N-lane work precedes the switch.
+            # the citizen-phase counts so no N-lane work precedes the
+            # switch.
             assert use_fused
 
             def work_side_sortless_d(fwd):
@@ -1067,9 +922,8 @@ def fast_step(
 
     # 8. bus side (rider-compacted; simulator.rs:360-401).  One packed key
     #    sort on the static rider-compaction rank moves (on_bus, infected,
-    #    susceptible) into rider order (a sort over N beats the r-sized
-    #    gather ~2.8ms vs ~5ms at Y&H scale; gather fallback for worlds
-    #    cached before the rpos lane existed); the rest is gather-free
+    #    susceptible) into rider order (gather fallback for worlds cached
+    #    before the rpos lane existed); the rest is gather-free
     #    (ops/segments.py::bus_hits): bits ride the shuffle sort, per-bus
     #    counts are run totals, and only the few successful hits scatter
     #    back.
@@ -1255,9 +1109,10 @@ def fast_step(
                     packed,
                 )
 
-            # tot_ib (infected riders on a bus) is free from the kernel
-            # partials; the switch predicate costs no N-lane work.
-            # sortless_bus implies sparse_apply implies the fused kernel.
+            # tot_ib (infected riders on a bus) is free from the
+            # citizen-phase counts; the switch predicate costs no N-lane
+            # work.  sortless_bus implies sparse_apply implies the fused
+            # citizen phase.
             assert use_fused
             tot_ib = jnp.sum(partials[:, 6])
             bound_b = max(1, min(cfg.sortless_slots, n)) * sortless_rounds(
@@ -1391,22 +1246,9 @@ def fast_step(
             )
 
     # 9. combine + bookkeeping (statistics.rs:181-195, 275-287)
-    if use_fused and packed2d:
-        # status/timer are (rows, 128) tiles; lift the hit lane once
-        # (pad rows are never exposed: pad status is 5)
-        rows2d = status.shape[0]
-
-        def _lift2d(x, fill=False):
-            pad = rows2d * 128 - n
-            if pad:
-                x = jnp.concatenate([x, jnp.full((pad,), fill, x.dtype)])
-            return x.reshape(rows2d, 128)
-
-    else:
-        _lift2d = None
-
     if sparse_apply:
-        # §9-sparse: the kernel already applied this step's home hits; the
+        # §9-sparse: the citizen phase already applied this step's home
+        # hits; the
         # gated work/bus hits (zero on most hours, a handful at peaks) are
         # drained as K-bounded scatter rounds — no N-wide select chains, no
         # dense citizen-order hit lanes, exact at any hit count (the while
@@ -1417,9 +1259,6 @@ def fast_step(
         K_AP = max(1, min(cfg.apply_sparse_slots, n))
 
         def _scatter(lane, idx, live, value):
-            if getattr(lane, "ndim", 1) == 2:
-                r = jnp.where(live, idx // 128, lane.shape[0])
-                return lane.at[r, idx % 128].set(value, mode="drop")
             return lane.at[jnp.where(live, idx, lane.shape[0])].set(
                 value, mode="drop"
             )
@@ -1498,13 +1337,8 @@ def fast_step(
         n_bus_exp = n_bus_new
     else:
         newly_exposed = hit_home | hit_work | hit_bus
-        if _lift2d is not None:
-            newly2d = _lift2d(newly_exposed)
-            status = jnp.where(newly2d, jnp.int8(STATUS_EXPOSED), status)
-            timer = jnp.where(newly2d, 0, timer)
-        else:
-            status = jnp.where(newly_exposed, jnp.int8(STATUS_EXPOSED), status)
-            timer = jnp.where(newly_exposed, 0, timer)
+        status = jnp.where(newly_exposed, jnp.int8(STATUS_EXPOSED), status)
+        timer = jnp.where(newly_exposed, 0, timer)
         if rep:
             newly_ws = hh_ws | hit_work_ws_lane | hit_bus_ws
             status_ws1 = jnp.where(newly_ws, jnp.int8(STATUS_EXPOSED), status_ws1)
@@ -1525,8 +1359,7 @@ def fast_step(
         # per-OA home counts come from compacting the hit positions
         # (ops/sparse.py::compact_positions — no N-sized cumsum) + a
         # K-bounded scatter-add; the dense range-totals extraction
-        # (cumsum + 227k-sized gathers, ~10 ms/step at 63M) only runs on
-        # peak hours.  Identical counts either way (OA-major order).
+        # (cumsum + OA-sized gathers) only runs on peak hours.  Identical counts either way (OA-major order).
         n_oa_rec = world.oa_lo.shape[0]
         K_OA = cfg.oa_sparse_slots
         if K_OA is None:
@@ -1546,7 +1379,7 @@ def fast_step(
             )
 
         if K_OA < 0:
-            # probe-only: sparse with no cond (truncates past |K_OA| hits)
+            # debug only: sparse with no cond (truncates past |K_OA| hits)
             K_OA = -K_OA
             oa_home = oa_sparse(hit_home)
         elif K_OA > 0:
@@ -1554,11 +1387,11 @@ def fast_step(
                 (n_home if use_fused else jnp.sum(hit_home.astype(jnp.int32)))
                 <= K_OA,
                 oa_sparse,
-                lambda hit: _range_totals(hit, world.oa_lo, world.oa_hi),
+                lambda hit: range_totals(hit, world.oa_lo, world.oa_hi),
                 hit_home,
             )
         else:
-            oa_home = _range_totals(hit_home, world.oa_lo, world.oa_hi)
+            oa_home = range_totals(hit_home, world.oa_lo, world.oa_hi)
         exposures_per_oa = oa_home + oa_work
     elif cfg.record_exposures_per_oa:
         counted = hit_home | (hit_work & ~hit_home)
@@ -1581,10 +1414,7 @@ def fast_step(
         ~state.vaccination_started & (th.vaccination >= 0) & (th.vaccination < pct)
     )
     vaccination_started = state.vaccination_started | newly_started
-    _sus = status == STATUS_SUSCEPTIBLE
-    if _lift2d is not None:
-        _sus = _sus.reshape(-1)[:n]
-    eligible = jnp.where(newly_started, _sus, eligible)
+    eligible = jnp.where(newly_started, status == STATUS_SUSCEPTIBLE, eligible)
 
     ms = state.mask_status
     ms_next = jnp.where(
@@ -1657,7 +1487,7 @@ def fast_step(
             # scalar-chain note at the top of fast_step)
             scores = hash_bits(seed_vax, jnp.arange(n, dtype=jnp.uint32))
             tau = kth_threshold(
-                seed_vax, eligible, k, n_elig, use_pallas=use_pallas
+                seed_vax, eligible, k, n_elig
             )
             below = eligible & (scores < tau)
             at = eligible & (scores == tau)
@@ -1666,12 +1496,7 @@ def fast_step(
             def tiebreak(at_lane):
                 # multiple eligible scores equal tau (p ~ pool/2^32 per
                 # step): exact-k needs their cumulative ranks
-                if use_pallas:
-                    from ..ops.pallas_scans import cumsum_pallas
-
-                    at_rank = cumsum_pallas(at_lane)
-                else:
-                    at_rank = jnp.cumsum(at_lane.astype(jnp.int32))
+                at_rank = jnp.cumsum(at_lane.astype(jnp.int32))
                 return at_lane & (at_rank <= allowed)
 
             take_at = jax.lax.cond(
@@ -1685,7 +1510,7 @@ def fast_step(
         # negative = all pieces real (-1 conditional, -2 unconditional)
         parts = -1 if cfg.debug_vax_parts < 0 else cfg.debug_vax_parts
         if not parts & 1:
-            # probe-only fake selector: one fixed-threshold compare
+            # debug only: fake selector, one fixed-threshold compare
             from ..ops.hashrng import hash_bits as _hb
 
             chosen = eligible & (
@@ -1736,8 +1561,6 @@ def fast_step(
             chosen = fresh_threshold(seed_vax0)
 
         def apply(chosen_lane, status_lane):
-            if _lift2d is not None and getattr(status_lane, "ndim", 1) == 2:
-                chosen_lane = _lift2d(chosen_lane)
             new = jnp.where(
                 chosen_lane, jnp.int8(STATUS_VACCINATED), status_lane
             )
@@ -1782,7 +1605,7 @@ def fast_step(
         return new_status, eligible, st_ws, st_r, n_vax_now
 
     if cfg.debug_vax_parts == -2:
-        # probe-only: unconditional vaccinate (no lax.cond).  Semantics are
+        # debug only: unconditional vaccinate (no lax.cond).  Semantics are
         # preserved because pre-activation the eligible lane is all-false,
         # so k = min(rate, 0) = 0 selects nobody.
         if rep:

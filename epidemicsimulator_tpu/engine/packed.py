@@ -1,26 +1,25 @@
 """Packed-replica ensembles: R parameter replicates as ONE world.
 
-The vmapped ensemble (engine/ensemble.py) pays ~3.4x over a single world of
-the same total lane count (docs/PERF.md): batched sorts, flattened control
-flow and per-replicate small-op overhead.  This module removes the vmap
+The vmapped ensemble (engine/ensemble.py) pays for batched sorts, flattened
+control flow and per-replicate small-op overhead over a single world of the
+same total lane count.  This module removes the vmap
 entirely — R disjoint copies of the base world are packed into one World
 (buildings / OAs / rooms / routes offset per replica, so no mixing group
 ever crosses replicas) and ONE pass of the regular fast-path formulation
 steps all replicates:
 
-* each replica is padded to a whole number of fused-kernel blocks
-  (``block_rows * 128`` lanes; pad citizens are inert singleton households
-  with status 5, outside every census, draw and mask), so every kernel
-  block belongs to exactly one replica;
+* each replica is padded to a whole number of ``block_rows * 128``-lane
+  blocks (pad citizens are inert singleton households with status 5,
+  outside every census, draw and mask), so replicas are equal contiguous
+  spans;
 * the swept disease parameters (every DiseaseParams field: exposure_chance,
   exposed_time, infected_time, mask_effectiveness, vaccination_rate) and
   the per-replica intervention state (lockdown, mask status) reach the
-  fused citizen kernel as (R,)-row SMEM tables selected by the block's
-  replica id (ops/pallas_citizen.py ensemble mode) — no per-citizen
-  parameter lanes, no extra HBM traffic; intervention thresholds are (R,)
-  rows compared against the (R,) per-replica census;
-* the per-replica SEIRV census falls out of the kernel's per-block
-  partials (replica-aligned blocks sum directly);
+  fused citizen phase as (R,) rows, one per replica span (ops/citizen.py
+  ``n_groups``) — no per-citizen parameter lanes in device memory;
+  intervention thresholds are (R,) rows compared against the (R,)
+  per-replica census;
+* the per-replica SEIRV census is the citizen phase's per-group counts;
 * work / bus / vaccination run the regular fast-path formulations over the
   packed lanes, with per-citizen views of (R,) state as broadcast+reshape —
   replicas are contiguous, equal-stride blocks in every engine order
@@ -44,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..backend import use_fused_citizen
 from ..config import (
     MASK_EVERYWHERE,
     MASK_NONE,
@@ -84,12 +84,8 @@ class PackedEnsemble:
     rep_size: int = dataclasses.field(metadata=dict(static=True))
     #: padded per-replica lane count (multiple of block_rows * 128)
     rep_stride: int = dataclasses.field(default=0, metadata=dict(static=True))
-    #: fused-kernel block height used for the alignment
+    #: alignment unit, in rows of 128 lanes, of each replica's span
     block_rows: int = dataclasses.field(default=128, metadata=dict(static=True))
-
-    @property
-    def blocks_per_rep(self) -> int:
-        return self.rep_stride // (self.block_rows * LANES)
 
 
 @jax.tree_util.register_dataclass
@@ -233,10 +229,9 @@ def _rep_lane(vec_r, R, stride):
 def derive_step_rng(base_key, hours):
     """Per-step RNG material for a chunk, batched: one vectorised threefry
     pass over the (chunk,) hours instead of a scalar fold_in/split/bits
-    chain per scan iteration.  The per-step chain compiled to a
-    HOST-computed xor inside the while loop on this runtime (S(6) scalar,
-    xplane: a 4 ms copy-start per step waiting on it — docs/PERF.md), so
-    the chunk runner precomputes these and feeds them through scan xs.
+    chain per scan iteration, so the scan body holds no scalar key
+    arithmetic; the chunk runner precomputes these and feeds them through
+    scan xs.
     Streams are bitwise-identical to the inline derivation."""
 
     def one(h):
@@ -289,9 +284,9 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
     (simulator.rs:131-152); th = InterventionThresholds (shared).
 
     Mirrors engine/fastpath.py::fast_step stage for stage; per-replica
-    parameters enter the fused kernel as SMEM rows (ensemble mode) and the
-    work/bus/vaccination stages as broadcast lanes over the (R, stride)
-    block structure.
+    parameters enter the fused citizen phase as (R,) rows (one group per
+    replica) and the work/bus/vaccination stages as broadcast lanes over
+    the (R, stride) block structure.
 
     ``rng``: optional pre-derived (k_bus, k_b, seed_h, seed_w, seed_vax)
     for this step (derive_step_rng row); derived inline from
@@ -337,17 +332,8 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
     h24 = (hour % 24).astype(jnp.int8)
     move_r = ~state.lockdown  # (R,)
 
-    use_pallas = cfg.use_pallas_scans
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     K = world.max_household_size
-    use_fused = cfg.use_fused_citizen
-    if use_fused is None:
-        use_fused = use_pallas and 0 < K <= 24
-    if use_fused and not 0 < K <= 24:
-        raise ValueError(
-            "use_fused_citizen requires 0 < max_household_size <= 24"
-        )
+    use_fused = use_fused_citizen(cfg, K)
 
     def trunc(x):
         return truncate_u8(x) if cfg.reference_u8_truncation else x
@@ -365,69 +351,37 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
         )
 
     if use_fused:
-        # Stages 1-4 fused (ops/pallas_citizen.py ensemble mode): timers,
-        # per-replica movement, block-partial census, household pressure,
+        # Stages 1-4 fused (ops/citizen.py, one group per replica): timers,
+        # per-replica movement, per-replica census, household pressure,
         # home draw and the packed cond operand in one pass.
-        from ..ops.pallas_citizen import citizen_phase, make_citizen_statics
+        from ..ops.citizen import citizen_phase, make_citizen_statics
 
         statics = (
             fused_statics if fused_statics is not None
             else make_citizen_statics(world)
         )
-        zero = jnp.int32(0)
-        ints = jnp.stack([
-            h24.astype(jnp.int32), zero, zero,
-            jax.lax.bitcast_convert_type(seed_h, jnp.int32),
-            zero, zero,
-            jax.lax.bitcast_convert_type(off_u32, jnp.int32), zero,
-        ])
-        f32s = jnp.stack([jnp.float32(0.0), jnp.float32(0.0)])
-        rep_ints = jnp.stack(
-            [
-                move_r.astype(jnp.int32),
-                state.mask_status.astype(jnp.int32),
-                jnp.asarray(pe.exposed_time, jnp.int32),
-                jnp.asarray(pe.infected_time, jnp.int32),
-            ],
-            axis=1,
-        )
-        rep_f32s = jnp.stack(
-            [
-                jnp.asarray(pe.chance, jnp.float32),
-                jnp.asarray(1.0, jnp.float32)
-                - jnp.asarray(pe.mask_effectiveness, jnp.float32),
-            ],
-            axis=1,
-        )
-        (status, timer, sched1, fwd_packed, partials) = citizen_phase(
+        (status, timer, sched1, fwd_packed, part_r) = citizen_phase(
             statics,
             state.status, state.timer, state.sched,
-            ints, f32s,
+            h24=h24, move=move_r, mask_status=state.mask_status,
+            seed=seed_h,
+            exposed_time=pe.exposed_time, infected_time=pe.infected_time,
+            exposure_chance=pe.chance,
+            mask_effectiveness=pe.mask_effectiveness,
+            gid0=off_u32,
             K=K,
             ref_mask_sem=cfg.reference_mask_semantics,
             u8_trunc=cfg.reference_u8_truncation,
-            block_rows=pe.block_rows,
-            interpret=jax.default_backend() != "tpu",
-            n_citizens=N,
-            rep_ints=rep_ints,
-            rep_f32s=rep_f32s,
-            blocks_per_rep=pe.blocks_per_rep,
+            n_groups=R,
         )
         timer = jnp.asarray(timer, jnp.int32)
         hit_home = (fwd_packed & 4) != 0
-        # replica-aligned blocks: the per-replica census is a partial sum
-        part_r = jnp.sum(
-            partials.reshape(R, pe.blocks_per_rep, 8), axis=1
-        )  # (R, 8)
         seirv0 = part_r[:, :5]
-        work_pred = jnp.sum(partials[:, 5]) > 0
-        bus_pred = jnp.sum(partials[:, 6]) > 0
-
-        def _sched_flat():
-            return sched1
+        work_pred = jnp.sum(part_r[:, 5]) > 0
+        bus_pred = jnp.sum(part_r[:, 6]) > 0
     else:
-        # XLA formulation (CPU tests / fallback) — same streams, same
-        # values as the kernel (tests/test_packed.py pins this bitwise).
+        # Unfused formulation — same streams, same values as the fused
+        # phase (tests/test_packed.py pins this bitwise).
         s0 = state.sched
         at_work0 = (s0 & 1) != 0
         on_bus0 = (s0 & 2) != 0
@@ -513,9 +467,6 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
         work_pred = jnp.any(contrib_work)
         bus_pred = jnp.any(on_bus & (status == STATUS_INFECTED))
 
-        def _sched_flat():
-            return sched1
-
     # 5-7. work side, gated like the fast path (fastpath.py work_side): no
     # infected worker at any workplace -> every q is 0, the zero branch is
     # value-identical and skips the two N-sized permutation sorts + scans.
@@ -524,29 +475,17 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
         contrib_w_ws = (fwd_ws & 1).astype(jnp.int32)
         susc_ws = (fwd_ws & 2) != 0
         hit_home_ws = (fwd_ws & 4) != 0
-        if use_pallas:
-            from ..ops.pallas_scans import run_totals_fused
-
-            n_w_ws, room_ws = run_totals_fused(
-                (fwd_ws & 1),
-                [
-                    (world.ws_wb_start_mask, world.ws_wb_end_mask),
-                    (world.ws_room_start_mask, world.ws_room_end_mask),
-                ],
-                tile_rows=512,
-            )
-        else:
-            n_w_ws = run_totals(
-                contrib_w_ws, world.ws_wb_start_mask, world.ws_wb_end_mask
-            )
-            room_ws = run_totals(
-                contrib_w_ws, world.ws_room_start_mask, world.ws_room_end_mask
-            )
+        n_w_ws = run_totals(
+            contrib_w_ws, world.ws_wb_start_mask, world.ws_wb_end_mask
+        )
+        room_ws = run_totals(
+            contrib_w_ws, world.ws_room_start_mask, world.ws_room_end_mask
+        )
         draws_ws = jnp.where(
             world.ws_is_school, room_ws, (n_w_ws > 0).astype(jnp.int32)
         )
-        at_work_ws_l = (_sched_flat() & 8) != 0
-        on_bus_ws_l = (_sched_flat() & 16) != 0
+        at_work_ws_l = (sched1 & 8) != 0
+        on_bus_ws_l = (sched1 & 16) != 0
         # ws order is replica-major equal blocks, so the citizen-order
         # broadcast lanes (chance, mask status, effectiveness) are also the
         # ws-order ones; built INSIDE the branch from (R,) rows
@@ -571,7 +510,7 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
         # lane bitwise-identical at any hit count.  BOTH strategies live
         # inside the cond so mid-epidemic hours (ensembles: hits >> K on
         # every work hour near the peaks) don't also pay the compaction +
-        # full-lane scatter (xplane: ~2 ms/step of dead work at R=64).
+        # full-lane scatter.
         from ..ops.sparse import compact_positions, scatter_bits
 
         KS = cfg.sparse_transport_slots
@@ -683,7 +622,7 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
         fwd_packed,
     )
 
-    # 9. combine (the fused kernel already applied hit_home; the dense
+    # 9. combine (the fused phase already applied hit_home; the dense
     # re-apply is idempotent, so both paths stay bitwise-identical)
     newly_exposed = hit_home | hit_work | hit_bus
     status = jnp.where(newly_exposed, jnp.int8(STATUS_EXPOSED), status)
@@ -766,10 +705,9 @@ def packed_step(pe: PackedEnsemble, th, cfg: SimConfig, state: PackedState,
     # Gate on any ELIGIBLE citizen, not any started replica: eligible lanes
     # are only true between a replica's activation and its pool draining
     # (~pool/rate steps), so the cond stops firing for the rest of the run
-    # — a fired vaccinate-cond stalls this runtime even with a trivial
-    # body (docs/PERF.md, tools/probe_vax_parts2), and with 64 replicas
-    # SOME replica latches early and would otherwise pin the cond on for
-    # every remaining step.  Value-identical: no eligible => every k_r
+    # — with 64 replicas SOME replica latches early and would otherwise
+    # pin the cond on for every remaining step.  Value-identical: no
+    # eligible => every k_r
     # is min(rate, 0) = 0 => nobody chosen.
     status, eligible = jax.lax.cond(
         jnp.any(eligible),
@@ -791,16 +729,11 @@ def make_packed_runner(pe: PackedEnsemble, cfg: SimConfig):
     """jitted chunk(thresholds, state) -> (state, (chunk, R, 5))."""
     s = jax.sharding.SingleDeviceSharding(jax.devices()[0])
 
-    use_pallas = cfg.use_pallas_scans
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    use_fused = cfg.use_fused_citizen
-    if use_fused is None:
-        use_fused = use_pallas and 0 < pe.world.max_household_size <= 24
+    use_fused = use_fused_citizen(cfg, pe.world.max_household_size)
 
     def chunk(pe_d, th, state):
         if use_fused:
-            from ..ops.pallas_citizen import make_citizen_statics
+            from ..ops.citizen import make_citizen_statics
 
             statics = make_citizen_statics(pe_d.world)  # loop-invariant
         else:
@@ -810,9 +743,8 @@ def make_packed_runner(pe: PackedEnsemble, cfg: SimConfig):
         )  # loop-invariant
 
         # Per-step RNG material precomputed OUTSIDE the scan in one batched
-        # threefry pass and fed through scan xs (see derive_step_rng: the
-        # inline per-step chain host-pins a scalar and stalls ~4 ms/step on
-        # this runtime).  The key itself leaves the carry entirely.
+        # threefry pass and fed through scan xs (see derive_step_rng).  The
+        # key itself leaves the carry entirely.
         base_key = state.rng_key
         state = dataclasses.replace(state, rng_key=None)
         hours = state.hour + 1 + jnp.arange(cfg.chunk_size, dtype=jnp.int32)

@@ -35,7 +35,7 @@ class Simulator:
         devices: int | None = None,
     ):
         """``profile_dir``: capture a jax.profiler trace of one mid-run chunk
-        (the TPU analog of the reference's criterion+cpuprofiler benches,
+        (the analog of the reference's criterion+cpuprofiler benches,
         run/benches/bench.rs).  ``checkpoint_path``: snapshot the device
         state every ``checkpoint_every_chunks`` chunks and resume from an
         existing snapshot.  ``devices``: run the population-sharded engine
@@ -48,8 +48,8 @@ class Simulator:
         import os
 
         if os.environ.get("ESUCD_NO_COMPILE_CACHE", "") != "1":
-            # Idempotent; drops the ~60s Y&H chunk compile to ~4s in warm
-            # processes.  Opt out with ESUCD_NO_COMPILE_CACHE=1.
+            # Idempotent; warm processes load the chunk executable instead
+            # of compiling it.  Opt out with ESUCD_NO_COMPILE_CACHE=1.
             from ..utils import enable_compilation_cache
 
             enable_compilation_cache()
@@ -100,8 +100,9 @@ class Simulator:
         """Chunk loop over the population-sharded runner (same structure as
         engine/scan.py::run: host-checked S+E+I early exit matching
         statistics.rs:289-291, per-chunk callback for recorder/checkpoint/
-        progress).  Per-chunk materialisation is deliberate — async
-        dispatch over donated buffers hangs this runtime (docs/PERF.md)."""
+        progress).  Per-chunk materialisation is deliberate: the callback
+        reads the state the chunk just produced, before the next dispatch
+        donates its buffers."""
         import jax
         import jax.numpy as jnp
         from jax.sharding import NamedSharding, PartitionSpec as P

@@ -73,8 +73,7 @@ class SimState:
     # at_work_ws, on_bus_ws).  None in the public representation; the fused
     # chunk runner packs the five bool lanes into this ONE lane for the
     # duration of its scan (pack_sched/unpack_sched below) so the citizen
-    # kernel moves 1 schedule lane per step instead of 5 and no bool<->s8
-    # boundary conversions run (docs/PERF.md).
+    # phase moves 1 schedule lane per step instead of 5.
     sched: Any = None
 
 
@@ -123,43 +122,6 @@ def unpack_sched(state: SimState, *, ws_present: bool = True) -> SimState:
         at_work_ws=((s & 8) != 0) if ws_present else empty,
         on_bus_ws=((s & 16) != 0) if ws_present else empty,
         sched=jnp.zeros((0,), jnp.int8),
-    )
-
-
-def to_2d_carry(state: SimState) -> SimState:
-    """Packed-scan-internal representation: status/timer/sched reshaped to
-    (rows, 128) with inert padding (status 5 = outside every census/mask,
-    so pad rows never expose or get exposed; timers/sched 0).  Kills the
-    per-step 1D<->2D pad/slice passes at the fused-kernel boundary — the
-    kernel consumes these tiles directly (ops/pallas_citizen.py).  Call
-    after pack_sched; undone by from_2d_carry at the chunk boundary."""
-    n = state.status.shape[0]
-    rows = -(-n // 128)
-
-    def p2(x, fill):
-        pad = rows * 128 - n
-        if pad:
-            x = jnp.concatenate([x, jnp.full((pad,), fill, x.dtype)])
-        return x.reshape(rows, 128)
-
-    return dataclasses.replace(
-        state,
-        status=p2(state.status, 5),
-        timer=p2(jnp.asarray(state.timer, TIMER_DTYPE), 0),
-        sched=p2(state.sched, 0),
-    )
-
-
-def from_2d_carry(state: SimState, n: int) -> SimState:
-    """Inverse of to_2d_carry (flat (N,) public lanes)."""
-    if state.status.ndim != 2:
-        return state
-    flat = lambda x: x.reshape(-1)[:n]
-    return dataclasses.replace(
-        state,
-        status=flat(state.status),
-        timer=flat(state.timer),
-        sched=flat(state.sched),
     )
 
 

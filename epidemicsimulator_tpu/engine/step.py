@@ -65,9 +65,9 @@ def step(
     ``axis_name``: when set, the step runs inside ``shard_map`` over a
     citizen-sharded mesh axis of that name.  Per-citizen lanes are local
     shards; infection-pressure tables and global counters are combined with
-    ``lax.psum`` over the axis (the TPU analog of the reference's cross-OA
+    ``lax.psum`` over the axis (the mesh analog of the reference's cross-OA
     migration merge, simulator.rs:218-257 — except no agent state ever
-    moves, only B-sized count tables ride the ICI).
+    moves, only B-sized count tables cross the interconnect).
 
     Single-device calls dispatch to the gather-free fast path
     (engine/fastpath.py) when the world carries fast tables and
@@ -384,7 +384,7 @@ def step(
         if axis_name:
             # Exact global-k selection: gather every shard's local top-k_max
             # scores, find the global rank-k threshold, and vaccinate local
-            # candidates at or below it.  O(devices * k) over ICI.
+            # candidates at or below it.  O(devices * k) over the mesh.
             all_scores = jax.lax.all_gather(-neg_top, axis_name).reshape(-1)
             global_sorted = jnp.sort(all_scores)
             kth = jnp.take(

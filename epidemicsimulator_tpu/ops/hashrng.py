@@ -1,13 +1,14 @@
-"""Counter-based hash uniforms for the fused citizen-phase kernel.
+"""Counter-based hash uniforms for the per-citizen draws.
 
-The home-exposure Bernoulli draw runs inside a Pallas kernel, where
-``jax.random``'s threefry is unavailable.  Instead each citizen draws from a
-stateless integer hash of ``(per-step seed, citizen index)`` — a murmur3
-fmix32 finalizer over a splitmix-style mixed counter.  Properties that
-matter here:
+Each citizen draws from a stateless integer hash of ``(per-step seed,
+global citizen index)`` — a murmur3 fmix32 finalizer over a splitmix-style
+mixed counter — instead of a threefry pass over the whole lane.  Properties
+that matter here:
 
-* identical values from the Pallas kernel, the XLA fast path and the
-  interpreter (pure int32 ops) — formulation-equivalence tests stay bitwise;
+* identical values from every formulation and every backend (pure integer
+  ops, then an exact conversion) — formulation-equivalence tests stay
+  bitwise, and a shard or replica hashing its global ids reproduces the
+  single-device stream;
 * avalanche-quality mixing (murmur3 fmix32 passes SMHasher), far beyond the
   `thread_rng` the reference uses (citizen.rs:221-248, non-reproducible);
 * a fresh stream per step via the seed, itself drawn from the sim's
@@ -37,15 +38,14 @@ def hash_uniform(seed_u32, idx_u32):
     true for q == 0 and always true for q >= 1.
 
     Mixing constants are np.uint32 scalars on purpose: module-level jnp
-    scalars become captured executable constants under jit — the
-    buffer-mismatch trap documented in docs/PERF.md — and Pallas rejects
-    captured constants outright; numpy scalars inline as jaxpr literals.
+    scalars become captured executable constants under jit; numpy scalars
+    inline as jaxpr literals.
     """
     x = idx_u32 * np.uint32(0x9E3779B9) + seed_u32
     x = (x ^ (x >> 16)) * np.uint32(0x85EBCA6B)
     x = (x ^ (x >> 13)) * np.uint32(0xC2B2AE35)
     x = x ^ (x >> 16)
-    # >>8 leaves 24 bits, so the int32 view is nonnegative; Mosaic has no
-    # uint32->f32 cast, the bitcast-to-int32 route lowers everywhere.
+    # >>8 leaves 24 bits, so the int32 view is nonnegative and converts
+    # to f32 exactly.
     x24 = jax.lax.bitcast_convert_type(x >> 8, jnp.int32)
     return x24.astype(jnp.float32) * jnp.float32(1.0 / (1 << 24))

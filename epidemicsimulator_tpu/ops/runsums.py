@@ -1,9 +1,8 @@
 """Run-sum primitives: segment totals over contiguous runs without gathers.
 
-TPU gathers/scatters are per-index serial (~7ns/element — measured, see
-ops/README in docs/PERF.md), so the hot loop computes per-mixing-group
-infected counts as *contiguous-run* totals using only cumulative scans and
-elementwise ops.  For a lane of nonnegative values whose groups form
+The hot loop computes per-mixing-group infected counts as *contiguous-run*
+totals using only cumulative scans and elementwise ops, with no random
+access proportional to N.  For a lane of nonnegative values whose groups form
 contiguous runs (static boundary masks):
 
     cs  = inclusive cumsum           (monotone nondecreasing)
@@ -26,9 +25,19 @@ _I32_MAX = 2**31 - 1  # python int on purpose — see ops/segments.py note
 
 def run_totals(values_i32, start_mask, end_mask):
     """Per-element total of the element's run.  values >= 0, runs static."""
-    v = jnp.asarray(values_i32, jnp.int32)
-    cs = jnp.cumsum(v)
-    return run_totals_from_cumsum(cs, v, start_mask, end_mask)
+    return run_totals_multi(values_i32, [(start_mask, end_mask)])[0]
+
+
+def run_totals_multi(values_i32, sets):
+    """Run totals of one values lane over several static boundary
+    structures (``sets`` of ``(start_mask, end_mask)``), sharing one
+    cumsum — e.g. the work side's building and room structure."""
+    with jax.named_scope("run_totals"):
+        v = jnp.asarray(values_i32, jnp.int32)
+        cs = jnp.cumsum(v)
+        return tuple(
+            run_totals_from_cumsum(cs, v, start, end) for start, end in sets
+        )
 
 
 def run_totals_from_cumsum(cs, v, start_mask, end_mask):
@@ -53,15 +62,14 @@ def range_totals(values_i32, lo, hi):
 def permute_by_sort(static_rank, payload_i8, bits=8):
     """Reorder ``payload`` so element with rank r lands at position r.
 
-    ``static_rank`` is a compile-time-constant permutation lane; a key-sort
-    is the fastest general static permutation available through XLA on TPU
-    (measured ~3x cheaper than an equivalent gather at 3.5M elements).
-    Ranks are unique, so the sort need not be stable.
+    ``static_rank`` is a static permutation lane; the payload moves by one
+    key-sort (whether a gather through the inverse permutation is cheaper
+    on the GPU is not yet measured).  Ranks are unique, so the sort need
+    not be stable.
 
     ``bits``: width of the (nonnegative) payload.  Payload rides the low
-    bits of a single packed u32 key — one sorted stream is ~30% faster than
-    a (key, payload) pair sort (measured 3.7ms vs 5.4ms at N=3.5M).
-    Requires rank < 2**(32 - bits).
+    bits of a single packed u32 key — one sorted stream instead of a
+    (key, payload) pair sort.  Requires rank < 2**(32 - bits).
     """
     packed = (static_rank.astype(jnp.uint32) << bits) | payload_i8.astype(
         jnp.uint32

@@ -3,8 +3,8 @@
 The vaccination program needs the exact k-th smallest uint32 score among
 the eligible pool every step (engine/fastpath.py §11; simulator.rs:524-553
 semantics).  The straightforward bitwise bisection costs 32 masked
-reduction passes over the score lane — ~10 ms/step at 63M citizens
-(measured, docs/PERF.md).  :func:`kth_threshold` replaces it with a
+reduction passes over the score lane.  :func:`kth_threshold` replaces it
+with a
 sampling-accelerated EXACT search:
 
 1. score a strided 1-in-``stride`` sample directly from the hash stream
@@ -37,26 +37,19 @@ _U32_MAX = np.uint32(0xFFFFFFFF)
 #: machinery needs a meaningful stride to pay off)
 MIN_SAMPLED_N = 1 << 22
 _SAMPLE_LOG2 = 20  # sample size 1M
-# Band compaction slots.  A/B'd at 63M/k=1530 (fresh selector, lean):
-# 8192 -> 32768 measured 10.28 -> 11.39 ms/step, identical trajectories —
-# the K-sized compact_positions gather grows faster than whatever
-# bisection fallbacks the wider band avoids.  Keep 8192.
+# Band compaction slots (not yet tuned on the GPU).
 _BAND_SLOTS = 8192
 
 
 def bisect_threshold(scores_u32, eligible, k):
     """Smallest uint32 t with |{eligible & score <= t}| >= k — 32
     compare+reduce passes (the classic form).  :func:`radix_threshold`
-    returns the identical value in 8 passes; standalone on this chip the
-    two measured 1.1 vs 2.5 ms at 3.46M (the broadcast compare does not
-    fuse into the reduction), so the engine keeps the bisection."""
+    returns the identical value in 8 passes; the engine keeps the
+    bisection."""
 
-    # Straight-line unroll (NOT lax.while_loop): inside a fired lax.cond
-    # the profiler showed the while construct as 8000 tiny serial reduces
-    # per 250-step chunk with the device ~87% idle (docs/PERF.md).  The
-    # dominant stall turned out to be the cond firing itself
-    # (tools/probe_vax_parts2), but the unroll lets XLA pipeline the 32
-    # reduce passes and is bitwise-identical, so it stays.
+    # Straight-line unroll (NOT lax.while_loop): a while construct costs a
+    # loop-predicate round trip per pass, and the unroll lets XLA pipeline
+    # the 32 reduce passes; bitwise-identical either way.
     lo = jnp.uint32(0)
     hi = _U32_MAX
     for _ in range(32):
@@ -76,10 +69,9 @@ def radix_threshold(scores_u32, eligible, k):
     current bit position, how many eligible scores fall strictly below
     ``prefix + (v << shift)`` — a broadcast-compare reduction over the
     lane.  The resolved nibble is the number of boundaries whose count is
-    < k.  NOTE: measured SLOWER than the bisection standalone at 3.46M on
-    v5e (2.5 vs 1.1 ms — XLA materialises the (N, 15) compare instead of
-    fusing it into the reduction), so this is kept as a tested alternative
-    formulation, not wired into the engine.
+    < k.  Kept as a tested alternative formulation, not wired into the
+    engine (XLA may materialise the (N, 15) compare instead of fusing it
+    into the reduction; not yet measured on the GPU).
     """
     k = jnp.asarray(k, jnp.int32)
     v = jnp.arange(1, 16, dtype=jnp.uint32)  # (15,) nibble boundaries
@@ -121,7 +113,7 @@ def kth_threshold_sharded(scores_u32, eligible, k, n_eligible, *, axis,
                           sample_log2: int = 17,
                           band_slots: int = 4096):
     """Exact GLOBAL k-th smallest eligible score under ``shard_map``
-    (vaccination exact-k, parallel/fastmesh.py §11; VERDICT r4 #2).
+    (vaccination exact-k, parallel/fastmesh.py §11).
 
     The sampled-band design of :func:`kth_threshold` adapted to a device
     mesh: every shard contributes a strided sample of its local score
@@ -142,15 +134,10 @@ def kth_threshold_sharded(scores_u32, eligible, k, n_eligible, *, axis,
     S = scores_u32.shape[0]
     m_loc = 1 << sample_log2
     stride = S // m_loc
-    # Auto rule mirrors the single-chip selector: sampled only for shards
-    # >= MIN_SAMPLED_N.  Measured on the 1-dev TPU mesh at Y&H shard size
-    # (3.46M): bisection 9.27 vs sampled 9.79 ms/step in a
-    # vaccinating-every-step window (within run variance; the 32 unrolled
-    # compare+reduce passes pipeline well at that size), while at 63M the
-    # single-chip bisection costs ~10 ms/step — the sampled path is for
-    # large shards and for real multi-chip meshes where 32 SEQUENTIAL
-    # psum rounds are pure ICI latency (docs/PERF.md "Sharded vaccination
-    # selector").
+    # Auto rule mirrors the single-device selector: sampled only for
+    # shards >= MIN_SAMPLED_N — large shards, and meshes where 32
+    # SEQUENTIAL psum rounds are pure interconnect latency (a rule not yet
+    # measured on a GPU mesh).
     sampled = (
         (stride >= 4 and S >= MIN_SAMPLED_N)
         if force_sampled is None else force_sampled
@@ -212,7 +199,7 @@ def kth_threshold_sharded(scores_u32, eligible, k, n_eligible, *, axis,
     )
 
 
-def kth_threshold(seed_u32, eligible, k, n_eligible, *, use_pallas=False,
+def kth_threshold(seed_u32, eligible, k, n_eligible, *,
                   force_sampled: bool | None = None,
                   sample_log2: int = _SAMPLE_LOG2,
                   band_slots: int = _BAND_SLOTS):

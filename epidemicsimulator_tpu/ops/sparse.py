@@ -4,10 +4,10 @@ work order and rider order without N-sized sorts.
 The replicated-order fast path (engine/fastpath.py) maintains disease state
 in three static orders and communicates only the per-step *changes* (new
 exposures, vaccinations, work-side hits) — typically tens to a few thousand
-elements out of millions.  TPU scatters cost per *update* element and
+elements out of millions.  Scatters cost per *update* element and
 gathers per *query* element, so a K-bounded transport is:
 
-    rank  = inclusive cumsum of the hit mask          (one Pallas pass)
+    rank  = inclusive cumsum of the hit mask          (one scan pass)
     pos_j = searchsorted(rank, j+1)  for j < K         (~log2(N) gather rounds
                                                         of K elements)
     scatter the <=K positions through a static permutation lane
@@ -22,14 +22,9 @@ import jax
 import jax.numpy as jnp
 
 
-def mask_ranks(mask, *, use_pallas: bool):
+def mask_ranks(mask):
     """Inclusive-cumsum ranks of a bool lane and the total count."""
-    if use_pallas:
-        from .pallas_scans import cumsum_pallas
-
-        rank = cumsum_pallas(mask)
-    else:
-        rank = jnp.cumsum(mask.astype(jnp.int32))
+    rank = jnp.cumsum(mask.astype(jnp.int32))
     n = mask.shape[0]
     return rank, rank[n - 1]
 
@@ -61,7 +56,7 @@ def block_hierarchy(mask, *, block: int = 1024):
     mask tiles and their per-block counts.
 
     ``compact_positions`` recomputes this full-lane pass (pad + reshape +
-    reduce, ~1.7 ms at 63M) on EVERY call; XLA does not hoist it out of
+    reduce) on EVERY call; XLA does not hoist it out of
     drain while-loops even though the mask is loop-invariant.  Callers
     that drain many rounds build the hierarchy once and pass it to
     :func:`compact_from_hierarchy` — each round then costs only the
@@ -131,8 +126,8 @@ def compact_positions(mask, k_slots: int, *, block: int = 1024, offset=0):
     (engine/fastpath.py), whose while-loop pulls ``k_slots`` hits per
     iteration until the exact popcount is drained.
 
-    The rank machinery above pays one full-lane cumsum (~4.8 ms at 63M on
-    this chip, docs/PERF.md) plus a searchsorted over the N-lane.  This
+    The rank machinery above pays one full-lane cumsum plus a
+    searchsorted over the N-lane.  This
     form is hierarchical and pure XLA:
 
       1. per-block counts via one reshape-reduce (bandwidth pass),
@@ -148,8 +143,7 @@ def compact_positions(mask, k_slots: int, *, block: int = 1024, offset=0):
     :func:`compact_from_ranks`.
     """
     # Owning block per slot.  A searchsorted over the (nb,) prefix costs
-    # 16 rounds x K serial gathers (~2.6 ms at 63M/K=8192, per-index
-    # latency-bound even on a cache-sized table) — instead, two levels of
+    # ~16 dependent rounds of K gathers — instead, two levels of
     # vectorized compare+reduce: superblocks of SB blocks, then a K-row
     # gather of the owning superblock's counts (compact_from_hierarchy).
     return compact_from_hierarchy(

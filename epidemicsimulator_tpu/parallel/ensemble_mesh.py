@@ -3,7 +3,7 @@
 The packed-replica engine (engine/packed.py) tiles R parameter replicates
 into ONE world and steps them with the fused fast-path formulation on a
 single device.  Replicates never interact — the R axis is embarrassingly
-parallel — so multi-chip ensembles are pure data parallelism: each device
+parallel — so multi-device ensembles are pure data parallelism: each device
 holds R/n_dev whole replicas of the SAME base world and runs the identical
 packed step with **zero per-step collectives** (the reference has no
 counterpart: its runs are one process per parameter set, run/src/main.rs).
@@ -26,10 +26,9 @@ Layout
   (tests/test_ensemble_mesh.py).
 
 Scaling: per-device work is R_local/R of the single-device packing with no
-communication, so throughput scales linearly in devices until the packed
-sub-world no longer fills the chip (at the reference's York scale one
-replica is ~208k lanes; 8 replicas/device keeps the kernels in their
-measured-efficient regime, docs/PERF.md "Packed-replica ensembles").
+communication, so throughput should scale with devices until the packed
+sub-world no longer fills a device (at the reference's York scale one
+replica is ~208k lanes).  Not yet measured on a GPU mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..backend import use_fused_citizen
 from ..config import Params, SimConfig
 from ..engine.packed import (
     PackedEnsemble, PackedState, derive_step_rng, ensemble_done,
@@ -95,12 +95,7 @@ def make_sharded_packed_runner(pe: PackedEnsemble, cfg: SimConfig,
     n_riders_l = int(pe.world.rider_perm.shape[0])
     cfg = dataclasses.replace(cfg, id_keyed_ensemble_rng=True)
 
-    use_pallas = cfg.use_pallas_scans
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    use_fused = cfg.use_fused_citizen
-    if use_fused is None:
-        use_fused = use_pallas and 0 < pe.world.max_household_size <= 24
+    use_fused = use_fused_citizen(cfg, pe.world.max_household_size)
 
     pe_in_specs = _pe_specs(pe, P(AXIS), P())
     th_specs = jax.tree.map(lambda _: P(AXIS), Params.covid().thresholds)
@@ -119,7 +114,7 @@ def make_sharded_packed_runner(pe: PackedEnsemble, cfg: SimConfig,
         rgid0 = me.astype(jnp.uint32) * jnp.uint32(n_riders_l)
 
         if use_fused:
-            from ..ops.pallas_citizen import make_citizen_statics
+            from ..ops.citizen import make_citizen_statics
 
             statics = make_citizen_statics(pe_d.world)  # loop-invariant
         else:

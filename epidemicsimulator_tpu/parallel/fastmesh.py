@@ -1,7 +1,7 @@
 """Sharded fast path: the gather-free step formulation over a device mesh.
 
 Pairs with :mod:`.partition` (household-aligned shards + static ghost work
-slots).  Communication per step, all over ICI:
+slots).  Communication per step, over the devices' interconnect:
 
 * one ``all_to_all`` of packed int8 ghost bits out (6 bits per cross-shard
   worker) and one back (1 hit bit) — the only agent-level exchange;
@@ -9,21 +9,20 @@ slots).  Communication per step, all over ICI:
 * ``all_gather`` of per-shard scalar counts for exact global-k vaccination.
 
 Home (household window) and bus mixing are fully shard-local by
-construction.  This is the TPU analog of the reference's cross-OA
+construction.  This is the mesh analog of the reference's cross-OA
 migration merge (simulator.rs:218-257), reduced to a few static bits.
 
 The per-shard step runs the SAME engine as the single-device fast path
 (the reference's parallel path runs its fastest engine too,
-simulator.rs:94-96): the fused Pallas citizen kernel per shard (timers,
-movement, census partials, household window, home draw in one pass —
-ops/pallas_citizen.py, hashing global citizen ids via the gid0 offset so
-streams stay bitwise-identical to single-device), fused Pallas run totals
-on the work slots, lax.cond gating of the work/bus sides on psum'd
-pressure predicates (value-identical no-ops when zero), and the K-bounded
-sparse hit return (slot -> local citizen via the static unsort table)
-instead of a second full-length permutation sort.  A pure-XLA branch
-(use_fused_citizen=False) keeps the portable formulation for CPU meshes;
-both branches are bitwise-identical (tests/test_fastmesh.py).
+simulator.rs:94-96): the fused citizen phase per shard (timers,
+movement, census counts, household window, home draw in one pass —
+ops/citizen.py, hashing global citizen ids via the gid0 offset so
+streams stay bitwise-identical to single-device), run totals on the work
+slots, lax.cond gating of the work/bus sides on psum'd pressure
+predicates (value-identical no-ops when zero), and the K-bounded sparse
+hit return (slot -> local citizen via the static unsort table) instead
+of a second full-length permutation sort.  The unfused branch
+(use_fused_citizen=False) is bitwise-identical (tests/test_fastmesh.py).
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..backend import use_fused_citizen
 from ..config import (
     TIMER_DTYPE,
     TIMER_TWIN_DTYPE,
@@ -66,48 +66,23 @@ def _ext(lane, pad_value):
     )
 
 
-def _use_fused(sw: ShardedWorld, cfg: SimConfig):
-    """(use_pallas, use_fused) resolution — mirrors engine/fastpath.py."""
-    use_pallas = cfg.use_pallas_scans
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    use_fused = cfg.use_fused_citizen
-    if use_fused is None:
-        use_fused = use_pallas and 0 < sw.max_household_size <= 24
-    if use_fused and not 0 < sw.max_household_size <= 24:
-        raise ValueError(
-            "use_fused_citizen requires 0 < max_household_size <= 24"
-        )
-    return use_pallas, use_fused
-
-
 def _shard_citizen_statics(sw: ShardedWorld, sq):
-    """Per-shard CitizenStatics (ops/pallas_citizen.py bit layout) from the
+    """Per-shard CitizenStatics (ops/citizen.py bit layout) from the
     partitioned lanes.  The sharded formulation has no work-order twin, so
-    the d/e lanes' work-schedule fields are zero — the kernel's ws-movement
-    sched bits (3/4) are carried but never read here.  Built once per
-    chunk, outside the scan (loop-invariant)."""
-    import functools
+    the twin schedule fields are zero — the phase's ws-movement sched bits
+    (3/4) are carried but never read here.  Built once per chunk, outside
+    the scan (loop-invariant)."""
+    from ..ops.citizen import pack_citizen_statics
 
-    from ..ops.pallas_citizen import LANES, CitizenStatics, _pad_rows
-
-    i32 = lambda x: jnp.asarray(x, jnp.int32)
-    ws = i32(sq(sw.work_start))
-    we = i32(sq(sw.work_end))
-    uses = i32(sq(sw.uses_transport))
-    wneq = i32(sq(sw.work_neq_home))
-    pos = i32(sq(sw.hh_pos))
-    size = i32(sq(sw.hh_size))
-    compliant = i32(sq(sw.mask_compliant))
-    same_oa = i32(sq(sw.same_oa))
-    rows = -(-sw.shard_size // LANES)
-    p = functools.partial(_pad_rows, rows=rows)
-    return CitizenStatics(
-        a=p((ws | (uses << 5) | (wneq << 6)).astype(jnp.int8)),
-        b=p((we | ((pos & 7) << 5)).astype(jnp.int8)),
-        c=p(((pos >> 3) | (size << 2)).astype(jnp.int8)),
-        d=p(((compliant << 5) | (same_oa << 6)).astype(jnp.int8)),
-        e=p(jnp.zeros_like(ws).astype(jnp.int8)),
+    return pack_citizen_statics(
+        work_start=sq(sw.work_start),
+        work_end=sq(sw.work_end),
+        uses_transport=sq(sw.uses_transport),
+        work_neq_home=sq(sw.work_neq_home),
+        hh_pos=sq(sw.hh_pos),
+        hh_size=sq(sw.hh_size),
+        mask_compliant=sq(sw.mask_compliant),
+        same_oa=sq(sw.same_oa),
     )
 
 
@@ -119,12 +94,11 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
 
     Two formulations, bitwise-identical (tests/test_fastmesh.py):
 
-    * fused (TPU): stages 1-4 run the fused Pallas citizen kernel per
-      shard — the same engine as the single-device fast path — with the
-      shard's global-id offset keying the home draw, so streams equal
-      single-device; the schedule bools ride the packed s8 ``sched`` lane.
-    * XLA (CPU meshes / opt-out): the portable elementwise formulation
-      with bool schedule lanes.
+    * fused: stages 1-4 run the fused citizen phase per shard — the same
+      engine as the single-device fast path — with the shard's global-id
+      offset keying the home draw, so streams equal single-device; the
+      schedule bools ride the packed int8 ``sched`` lane.
+    * unfused: the elementwise formulation with bool schedule lanes.
 
     The work and bus sides are gated ``lax.cond``s on psum'd pressure
     predicates (replicated, so every shard takes the same branch and the
@@ -138,15 +112,10 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
     L = sw.sort_len
     G = sw.n_ghost
     n_dev = sw.n_dev
-    use_pallas, use_fused = _use_fused(sw, cfg)
-    if use_pallas:
-        from ..ops.pallas_scans import range_totals_pallas as _range_totals
-    else:
-        _range_totals = range_totals
+    use_fused = use_fused_citizen(cfg, sw.max_household_size)
 
-    # Probe-only subtraction bits for the per-collective cost table
-    # (SimConfig.debug_shard_parts; docs/PERF.md "per-collective cost
-    # table").  0 = everything real.
+    # Debug-only subtraction bits for a per-collective cost table
+    # (SimConfig.debug_shard_parts).  0 = everything real.
     _parts = 0 if cfg.debug_shard_parts == -1 else cfg.debug_shard_parts
     _skip_collectives = bool(_parts & 1)
     _skip_ghost = bool(_parts & 2)
@@ -184,44 +153,31 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
         return truncate_u8(x) if cfg.reference_u8_truncation else x
 
     if use_fused:
-        # Stages 1-4 + the cond-operand packing in one Pallas pass: timers,
-        # movement, census partials, household window, home draw — the
-        # home-draw hash is keyed on gid0 + lane (= global citizen id), so
-        # the stream equals single-device bitwise.
-        from ..ops.pallas_citizen import citizen_phase
+        # Stages 1-4 + the cond-operand packing in one fused pass
+        # (ops/citizen.py): timers, movement, census counts, household
+        # window, home draw — the home-draw hash is keyed on gid0 + lane
+        # (= global citizen id), so the stream equals single-device bitwise.
+        from ..ops.citizen import citizen_phase
 
         statics = (
             fused_statics if fused_statics is not None
             else _shard_citizen_statics(sw, sq)
         )
         gid0 = sq(sw.global_id)[0]  # shards are contiguous global ranges
-        ints = jnp.stack([
-            h24.astype(jnp.int32),
-            move.astype(jnp.int32),
-            state.mask_status.astype(jnp.int32),
-            jax.lax.bitcast_convert_type(seed_h, jnp.int32),
-            jnp.asarray(d.exposed_time, jnp.int32),
-            jnp.asarray(d.infected_time, jnp.int32),
-            gid0.astype(jnp.int32),
-            jnp.int32(0),
-        ])
-        f32s = jnp.stack([
-            jnp.asarray(d.exposure_chance, jnp.float32),
-            jnp.asarray(1.0, jnp.float32)
-            - jnp.asarray(d.mask_effectiveness, jnp.float32),
-        ])
         (status, timer, sched1, gates, partials) = citizen_phase(
             statics,
             state.status, state.timer, state.sched,
-            ints, f32s,
+            h24=h24, move=move, mask_status=state.mask_status, seed=seed_h,
+            exposed_time=d.exposed_time, infected_time=d.infected_time,
+            exposure_chance=d.exposure_chance,
+            mask_effectiveness=d.mask_effectiveness,
+            gid0=gid0.astype(jnp.uint32),
             K=K,
             ref_mask_sem=cfg.reference_mask_semantics,
             u8_trunc=cfg.reference_u8_truncation,
-            block_rows=cfg.fused_block_rows,
-            interpret=jax.default_backend() != "tpu",
         )
         timer = jnp.asarray(timer, jnp.int32)
-        # kernel gates: contrib_work | susceptible<<1 | hit_home<<2 |
+        # phase gates: contrib_work | susceptible<<1 | hit_home<<2 |
         # on_bus<<3 | infected<<4; add at_work (sched bit 0) as bit 5 for
         # the slot machinery.
         hit_home = (gates & 4) != 0
@@ -378,20 +334,8 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
 
         # global per-building pressure = local run totals: every worker of
         # a building occupies a slot on its owner shard, local or ghost.
-        if use_pallas:
-            from ..ops.pallas_scans import run_totals_fused
-
-            n_w, room = run_totals_fused(
-                contrib_s.astype(jnp.int8),
-                [
-                    (sq(sw.wb_start), sq(sw.wb_end)),
-                    (sq(sw.room_start), sq(sw.room_end)),
-                ],
-                tile_rows=512,
-            )
-        else:
-            n_w = run_totals(contrib_s, sq(sw.wb_start), sq(sw.wb_end))
-            room = run_totals(contrib_s, sq(sw.room_start), sq(sw.room_end))
+        n_w = run_totals(contrib_s, sq(sw.wb_start), sq(sw.wb_end))
+        room = run_totals(contrib_s, sq(sw.room_start), sq(sw.room_end))
         draws = jnp.where(
             sq(sw.slot_is_school), room, (n_w > 0).astype(jnp.int32)
         )
@@ -412,7 +356,7 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
         )
         from_work_s = hit_s & ~hit_home_s
         if record_oa:
-            oa_work = _range_totals(
+            oa_work = range_totals(
                 from_work_s, sq(sw.ws_oa_lo), sq(sw.ws_oa_hi)
             )
         else:
@@ -457,7 +401,7 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
         ) != 0
         return hit_work, oa_work
 
-    # debug/probe gate forcings (SimConfig.debug_force_gates) — same
+    # debug gate forcings (SimConfig.debug_force_gates) — same
     # subtractive-measurement hook as engine/fastpath.py; NOT
     # semantics-preserving when forcing a live side off.
     if cfg.debug_force_gates is not None:
@@ -550,24 +494,12 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
             loc_slots = sq(sw.slot_local) & active_l
             contrib_s8 = jnp.where(loc_slots, contrib_loc8, gbits & 1)
 
-            if use_pallas:
-                from ..ops.pallas_scans import run_totals_fused
-
-                n_w, room = run_totals_fused(
-                    contrib_s8,
-                    [
-                        (sq(sw.wb_start), sq(sw.wb_end)),
-                        (sq(sw.room_start), sq(sw.room_end)),
-                    ],
-                    tile_rows=512,
-                )
-            else:
-                n_w = run_totals(
-                    contrib_s8 != 0, sq(sw.wb_start), sq(sw.wb_end)
-                )
-                room = run_totals(
-                    contrib_s8 != 0, sq(sw.room_start), sq(sw.room_end)
-                )
+            n_w = run_totals(
+                contrib_s8 != 0, sq(sw.wb_start), sq(sw.wb_end)
+            )
+            room = run_totals(
+                contrib_s8 != 0, sq(sw.room_start), sq(sw.room_end)
+            )
             draws = jnp.where(
                 sq(sw.slot_is_school), room, (n_w > 0).astype(jnp.int32)
             )
@@ -685,9 +617,8 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
 
     def bus_side(fwd):
         # Rider-order input bits via ONE shard-local key-sort on the
-        # static rpos_local rank (the fastpath rpos trick: sort over S
-        # beats the R-sized gather, docs/PERF.md "sharded 1-dev
-        # decomposition") — pad rider slots receive non-rider citizens
+        # static rpos_local rank (the fastpath rpos trick) — pad rider
+        # slots receive non-rider citizens
         # whose on_bus bit is 0, so they sort to the invalid tail and the
         # hit set is bitwise the gather formulation's.  Gather fallback
         # for partitions cached before the lane existed.
@@ -808,14 +739,14 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
             bus_pred, bus_side, lambda _: jnp.zeros((S,), bool), fwd6
         )
 
-    # 9. combine + bookkeeping (the fused kernel already applied hit_home;
+    # 9. combine + bookkeeping (the fused phase already applied hit_home;
     #    the dense re-apply is idempotent, so both branches stay bitwise-
     #    identical)
     newly_exposed = hit_home | hit_work | hit_bus
     if _skip_reapply:
-        # probe bit2: value-identical ONLY with both sides forced off in
+        # debug bit2: value-identical ONLY with both sides forced off in
         # the fused regime (hit_work/hit_bus all-zero => the re-apply
-        # rewrites the kernel's own values) and vaccination disabled
+        # rewrites the phase's own values) and vaccination disabled
         # (eligible never read)
         from_bus = hit_bus & ~hit_home & ~hit_work
         eligible = state.eligible
@@ -831,7 +762,7 @@ def fast_shard_step(sw: ShardedWorld, params: Params, cfg: SimConfig,
     n_new = gsum(jnp.sum(newly_exposed.astype(jnp.int32)))
     n_bus_exp = gsum(jnp.sum(from_bus.astype(jnp.int32)))
     if record_oa:
-        oa_home = _range_totals(hit_home, sq(sw.oa_lo), sq(sw.oa_hi))
+        oa_home = range_totals(hit_home, sq(sw.oa_lo), sq(sw.oa_hi))
         exposures_per_oa = gsum(oa_home + oa_work)
     else:
         exposures_per_oa = jnp.zeros((0,), jnp.int32)
@@ -999,7 +930,7 @@ def make_fast_sharded_runner(sw: ShardedWorld, cfg: SimConfig, mesh: Mesh):
     ):
         # (n_dev*W,) slot-space schedule lanes for the sortless sharded
         # branches (fast_shard_step carries them; repurposed ws-twin
-        # fields).  Off by default — docs/PERF.md negative result.
+        # fields).  Off by default.
         lane_fields = lane_fields | {"at_work_ws", "on_bus_ws"}
     # The remaining twins and the packed sched lane are always empty (0,)
     # at chunk boundaries in the sharded formulation (init_sharded_state;
@@ -1024,7 +955,7 @@ def make_fast_sharded_runner(sw: ShardedWorld, cfg: SimConfig, mesh: Mesh):
         check_vma=False,
     )
     def chunk(sw_l, params, state_l):
-        _, use_fused = _use_fused(sw, cfg)
+        use_fused = use_fused_citizen(cfg, sw.max_household_size)
         sq = lambda x: x.reshape(x.shape[1:])
         statics = _shard_citizen_statics(sw_l, sq) if use_fused else None
         # per-shard rider-order schedule lanes for the sortless bus branch
@@ -1051,7 +982,7 @@ def make_fast_sharded_runner(sw: ShardedWorld, cfg: SimConfig, mesh: Mesh):
         empty_b = jnp.zeros((0,), jnp.bool_)
         if use_fused:
             # scan-internal packed carry: the three schedule bools ride the
-            # kernel's s8 sched lane (pack/unpack once per CHUNK)
+            # citizen phase's int8 sched lane (pack/unpack once per CHUNK)
             sched = (
                 state_l.at_work.astype(jnp.int8)
                 | (state_l.on_bus.astype(jnp.int8) << 1)
@@ -1062,11 +993,11 @@ def make_fast_sharded_runner(sw: ShardedWorld, cfg: SimConfig, mesh: Mesh):
                 at_work=empty_b, on_bus=empty_b, bus_to_work=empty_b,
             )
 
-        # Same two scan-plumbing fixes as engine/scan.py::make_chunk_runner
-        # (docs/PERF.md "sharded 1-dev decomposition"): (1) the PRNG key is
-        # loop-invariant (every step folds the hour in afresh) — carrying
-        # it costs paired u32[2] memory-space copies each iteration, so
-        # close over it; (2) one (10,) stacked output vector instead of
+        # Same two scan-plumbing choices as engine/scan.py's
+        # make_chunk_runner: (1) the PRNG key is loop-invariant (every step
+        # folds the hour in afresh) — carrying it costs copies each
+        # iteration, so close over it; (2) one (10,) stacked output vector
+        # instead of
         # six tiny per-step leaves, each of which pays its own
         # per-iteration store/copy.
         base_key = state_l.rng_key
@@ -1118,14 +1049,10 @@ def make_fast_sharded_runner(sw: ShardedWorld, cfg: SimConfig, mesh: Mesh):
             )
         return state_l, outs
 
-    # Explicit in_shardings: same provenance fix as engine/scan.py's
-    # make_chunk_runner (docs/PERF.md "Root cause of the vax-regime
-    # stall") — without them jit specializes a second program for
-    # committed inputs that pins branch scalars to host memory, and every
-    # FIRED lax.cond (work hours, bus hours, vaccination) stalls ~55 ms
-    # on a host round-trip.  Measured on the real chip via
-    # tools/probe_fastmesh_1dev.py: 62.5 -> ~4 ms/step on a 1-device
-    # mesh.  The shardings mirror the shard_map in_specs: world lanes and
+    # Explicit in_shardings: same provenance rule as engine/scan.py's
+    # make_chunk_runner — without them jit specializes a second program
+    # for committed inputs.  The shardings mirror the shard_map in_specs:
+    # world lanes and
     # state lanes split on AXIS, params and intervention scalars
     # replicated.
     shard = NamedSharding(mesh, P(AXIS))

@@ -6,7 +6,7 @@ future goal, README.md:24).  Here population scale-out is first-class:
 citizens are sharded across devices by home-OA blocks
 (:func:`pad_world_for_mesh` keeps the synthetic/preprocessed OA-sorted order,
 so commuting locality maps to shard locality), and each step exchanges only
-B-sized infection-pressure tables via ``psum`` over ICI — agent state never
+B-sized infection-pressure tables via ``psum`` — agent state never
 migrates, unlike the reference's citizen-struct moves between OA mutexes
 (simulator.rs:199-257).
 

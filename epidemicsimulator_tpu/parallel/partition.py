@@ -121,8 +121,8 @@ def partition_world(world: World, n_dev: int,
     """Split a canonical world into household-aligned shards + ghost tables.
 
     ``stats``: optional dict filled with partition diagnostics (shard
-    balance, cross-shard worker counts, max pair ghost count G) for the
-    comm-volume model in docs/PERF.md."""
+    balance, cross-shard worker counts, max pair ghost count G) for a
+    communication-volume model."""
     n = world.n_citizens
     hb = np.asarray(world.home_building, np.int64)
     assert (np.diff(hb) >= 0).all(), "citizens must be home-building sorted"

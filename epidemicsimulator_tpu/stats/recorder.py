@@ -15,7 +15,7 @@ Reproduces the on-disk contract of the reference's ``StatisticsRecorder``
   instead and document the divergence here.  PublicTransport entries are
   commented out in the reference dump; we keep the empty object.
 * ``timings.json`` — list of per-step ``{phase: seconds}`` maps.  Our step is
-  one fused kernel, so each entry carries ``{"Step": t, "total": t}`` with t
+  one compiled program, so each entry carries ``{"Step": t, "total": t}`` with t
   the per-step average of the enclosing chunk's wall time.
 * ``memory.json`` — list of per-step memory usage strings ("X.XX GB").
 """

@@ -70,7 +70,7 @@ class World:
     # scatter: citizens are kept sorted by home_building, a static
     # permutation sorts them by (work_building, room), and per-citizen
     # [start, end) ranges into prefix sums replace segment_sum on the hot
-    # path (scatters are the slow op on TPU; gathers + cumsum are fast).
+    # path.
     home_lo: Any = None        # int32 (N,), household range start (citizen order)
     home_hi: Any = None        # int32 (N,), household range end (exclusive)
     work_perm: Any = None      # int32 (N,), citizen ids sorted by (work_building, room)
@@ -90,8 +90,8 @@ class World:
                                # [:R]) without an r-sized gather
 
     # --- fast-path tables (build_fast_tables) -----------------------------
-    # TPU random access (gather/scatter) is per-index serial (~7ns/elem), so
-    # the hot loop avoids it entirely: run sums via boundary-masked scans,
+    # The hot loop avoids N-sized random access: run sums via boundary-masked
+    # scans,
     # citizen<->work-order movement via two static-key sorts, per-OA stats
     # via cumsum + tiny static gathers at OA boundaries.
     wpos: Any = None           # int32 (N,), rank of citizen in work order
@@ -358,7 +358,7 @@ class World:
         )
 
     # ------------------------------------------------------------------
-    # (De)serialisation — the preprocessing cache, the TPU analog of the
+    # (De)serialisation — the preprocessing cache, the analog of the
     # reference's bincode OSM cache (osm_data/src/lib.rs:395-474).
     # ------------------------------------------------------------------
     def save_npz(self, path: str) -> None:

@@ -1,4 +1,4 @@
-// ESUCD-TPU native geometry engine.
+// ESUCD native geometry engine.
 //
 // C++ replacements for the reference's Rust osm_data crate hot paths:
 //  * OSM PBF reader: hand-rolled protobuf wire decoding + zlib blobs,

@@ -1,9 +1,10 @@
-"""Docs-vs-artifacts consistency gate (VERDICT r2 next #8).
+"""Docs-vs-artifacts consistency gate for the fidelity records.
 
-Rounds 1 and 2 both shipped headline claims whose committed artifact said
-otherwise (the ensemble64 summary, twice).  This test fails the suite when
-any README/PERF/FIDELITY headline diverges from the sample_results artifact
-that backs it.  Pure file parsing — no JAX, runs in milliseconds.
+Fails the suite when a docs/FIDELITY.md number diverges from the
+sample_results artifact that backs it, when a committed artifact breaks an
+invariant its prose relies on, or when a config knob cites PERF.md for a
+measurement PERF.md does not hold.  Pure file parsing — no JAX, runs in
+milliseconds.
 """
 
 import pathlib
@@ -20,13 +21,13 @@ def test_doc_claims_match_artifacts():
 
 
 def test_front_page_claims():
-    """VERDICT r3 weak #6: the README bench headline must quote the newest
-    driver BENCH_r*.json, and every config knob citing docs/PERF.md must be
-    named there (no dangling measurement citations)."""
-    from artifacts_check import check_bench_headline, check_perf_citations
+    """Every config knob citing PERF.md is named there (no dangling
+    measurement citations), and no committed artifact's note contradicts
+    its own fields."""
+    from artifacts_check import check_note_contradictions, check_perf_citations
 
-    failures = check_bench_headline(verbose=False)
-    failures += check_perf_citations(verbose=False)
+    failures = check_perf_citations(verbose=False)
+    failures += check_note_contradictions(verbose=False)
     assert not failures, "\n".join(failures)
 
 

@@ -44,8 +44,7 @@ def test_score_prefers_the_generating_value():
     value that generated the target."""
     world = generate_synthetic_world(12_000, n_output_areas=6, seed=8)
     base = Params.covid()
-    cfg = SimConfig(max_steps=240, chunk_size=60, use_pallas_scans=False,
-                    record_exposures_per_oa=False)
+    cfg = SimConfig(max_steps=240, chunk_size=60, record_exposures_per_oa=False)
     true_c = 0.1
     target = _run_once(world, _toy_params(base, true_c), cfg)
     scores = {}
@@ -59,8 +58,7 @@ def test_score_prefers_the_generating_value():
 def test_calibrate_recovers_known_chance():
     world = generate_synthetic_world(12_000, n_output_areas=6, seed=8)
     base = Params.covid()
-    cfg = SimConfig(max_steps=240, chunk_size=60, use_pallas_scans=False,
-                    record_exposures_per_oa=False)
+    cfg = SimConfig(max_steps=240, chunk_size=60, record_exposures_per_oa=False)
     true_c = 0.1
     target = _run_once(world, _toy_params(base, true_c), cfg)
     result = calibrate(
@@ -79,7 +77,7 @@ def test_cli_calibrate(tmp_path):
 
     world = generate_synthetic_world(2000, n_output_areas=4, seed=3)
     base = Params.covid()
-    cfg = SimConfig(max_steps=96, chunk_size=48, use_pallas_scans=False)
+    cfg = SimConfig(max_steps=96, chunk_size=48)
     series = _run_once(world, _toy_params(base, 0.4), cfg)
     keys = ("susceptible", "exposed", "infected", "recovered", "vaccinated")
     rows = [

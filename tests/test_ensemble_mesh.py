@@ -48,8 +48,7 @@ def _sweep_params():
 def _cfg(**kw):
     return SimConfig(
         max_steps=STEPS, chunk_size=24, starting_infected=12,
-        use_fast_path=True, use_pallas_scans=False,
-        use_fused_citizen=False, bus_capacity=10, **kw,
+        use_fast_path=True, use_fused_citizen=False, bus_capacity=10, **kw,
     )
 
 

@@ -43,7 +43,7 @@ def _det_params():
 
 def _single_device_reference(world, status0, steps, transport, params=None):
     cfg = SimConfig(
-        use_fast_path=True, use_pallas_scans=False, use_fused_citizen=False,
+        use_fast_path=True, use_fused_citizen=False,
         max_vaccinations_per_step=1 if params is None else 4096,
         bus_capacity=1_000_000 if transport else 20,
     )
@@ -247,9 +247,9 @@ def test_partition_roundtrip_and_alignment():
 
 @pytest.mark.parametrize("n_dev", [4])
 def test_sharded_fused_kernel_bitwise_matches_xla(n_dev):
-    """The sharded fused-kernel branch (per-shard Pallas citizen kernel with
-    the gid0 offset, packed sched carry, gated work/bus conds, sparse hit
-    return) must reproduce the XLA sharded branch bitwise — in a fully
+    """The sharded fused branch (per-shard fused citizen phase with the
+    gid0 offset, packed sched carry, gated work/bus conds, sparse hit
+    return) must reproduce the unfused sharded branch bitwise — in a fully
     stochastic regime with transport ON and mask/vaccination/lockdown
     transitions firing mid-run."""
     world = generate_synthetic_world(4000, n_output_areas=12, seed=4)
@@ -290,8 +290,7 @@ def test_sharded_fused_kernel_bitwise_matches_xla(n_dev):
         cfg = SimConfig(
             chunk_size=steps, max_steps=steps,
             max_vaccinations_per_step=4096,
-            use_fused_citizen=fused, use_pallas_scans=False,
-            fused_block_rows=32,
+            use_fused_citizen=fused,
         )
         runner = make_fast_sharded_runner(sw, cfg, mesh)
         fs, outs = runner(w_sh, params, st)
@@ -320,7 +319,7 @@ def test_sortless_sharded_bitwise_matches_sorted():
     deferred susceptibility, sortless local bus) must be bitwise the
     sorted sharded formulation — including across intervention
     transitions and with cross-shard ghost workers live.  (Off by
-    default: measured slower on the 1-dev TPU proxy, docs/PERF.md.)"""
+    default; not yet measured on a GPU mesh.)"""
     from epidemicsimulator_tpu.parallel.fastmesh import (
         init_sharded_state, make_fast_sharded_runner,
     )
@@ -355,8 +354,7 @@ def test_sortless_sharded_bitwise_matches_sorted():
     for sl in (False, True):
         cfg = SimConfig(
             chunk_size=60, max_steps=60, max_vaccinations_per_step=4096,
-            use_fused_citizen=True, use_pallas_scans=False,
-            fused_block_rows=32, use_sortless_sharded=sl,
+            use_fused_citizen=True, use_sortless_sharded=sl,
         )
         st = init_sharded_state(world, sw, seed=0, starting_infected=0,
                                 cfg=cfg)

@@ -148,8 +148,7 @@ def test_sparse_workback_bitwise_matches_sort(slots):
     results = {}
     for swb in (False, True):
         cfg = SimConfig(
-            use_fused_citizen=True, use_pallas_scans=False,
-            use_sparse_workback=swb, workback_slots=slots,
+            use_fused_citizen=True, use_sparse_workback=swb, workback_slots=slots,
         )
         st = init_state(wd, seed=2, starting_infected=60)
         jstep = jax.jit(lambda w, p, s: step(w, p, cfg, s))

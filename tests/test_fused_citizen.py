@@ -1,11 +1,12 @@
-"""Fused citizen-phase kernel (ops/pallas_citizen.py) vs the unfused fast
-path.  Interpreter-mode on the CPU test platform.
+"""Fused citizen phase (ops/citizen.py) vs the unfused fast path, and the
+levers its per-step counts route (sortless, sparse apply, packed carry).
 
-The fused kernel draws home exposures from counter-hash uniforms rather
-than threefry, so stochastic trajectories differ stream-wise.  In the
-deterministic regime (exposure_chance=1: every draw probability is exactly
-0 or 1) the two formulations must agree bitwise; the hash stream itself is
-checked for uniformity separately.
+Both formulations draw home exposures from the same counter-hash stream
+with the same chance function, so trajectories agree bitwise in every
+regime; the deterministic regime (exposure_chance=1: every draw
+probability is exactly 0 or 1) also holds across backends whose float
+functions round differently.  The hash stream itself is checked for
+uniformity separately.
 """
 
 import dataclasses
@@ -49,7 +50,6 @@ def test_fused_matches_unfused_deterministically(transport):
     for fused in (True, False):
         cfg = SimConfig(
             use_fused_citizen=fused,
-            use_pallas_scans=fused,  # interpret-mode kernels on CPU
             max_vaccinations_per_step=1,
             bus_capacity=8192 if transport else 20,
         )
@@ -106,7 +106,7 @@ def test_fused_stochastic_epidemic_grows_comparably():
     params = Params.covid().as_arrays()
     totals = {}
     for fused in (True, False):
-        cfg = SimConfig(use_fused_citizen=fused, use_pallas_scans=fused)
+        cfg = SimConfig(use_fused_citizen=fused)
         st = init_state(world, seed=7, starting_infected=60)
         wd = world.device_put()
         jstep = jax.jit(lambda w, p, s: step(w, p, cfg, s))
@@ -122,9 +122,9 @@ def test_fused_stochastic_epidemic_grows_comparably():
 def test_packed_sched_carry_bitwise_matches_unpacked():
     """The packed schedule carry (SimConfig.use_packed_sched; one s8 lane
     through the scan, engine/state.py::pack_sched) must be bitwise-identical
-    to the unpacked bool-lane carry — same kernel, same draws, only the
-    carry representation differs.  Runs the interpreted fused kernel on a
-    small world via the real chunk runner."""
+    to the unpacked bool-lane carry — same citizen phase, same draws, only
+    the carry representation differs.  Runs the fused phase on a small
+    world via the real chunk runner."""
     from epidemicsimulator_tpu.engine.scan import make_chunk_runner
 
     world = generate_synthetic_world(12_000, n_output_areas=8, seed=3)
@@ -134,8 +134,7 @@ def test_packed_sched_carry_bitwise_matches_unpacked():
     for packed in (False, True):
         cfg = SimConfig(
             max_steps=72, chunk_size=24,
-            use_fused_citizen=True, use_pallas_scans=False,
-            use_packed_sched=packed,
+            use_fused_citizen=True, use_packed_sched=packed,
         )
         st = init_state(wd, seed=5, starting_infected=40)
         fn = make_chunk_runner(wd, cfg)
@@ -156,7 +155,7 @@ def test_packed_sched_carry_bitwise_matches_unpacked():
 def test_sparse_apply_bitwise_matches_dense(faithful):
     """The K-bounded sparse apply (SimConfig.use_sparse_apply: work/bus
     hits drained as scatter rounds) must be bitwise-identical to the dense
-    N-wide select apply under the same fused kernel.  apply_sparse_slots=4
+    N-wide select apply under the same fused phase.  apply_sparse_slots=4
     forces many while-loop rounds per step; a small bus capacity plus high
     exposure keeps work AND bus branches firing; both vaccine-bug regimes
     (simulator.rs:447-449) exercise their distinct eligible-prune flags."""
@@ -170,8 +169,7 @@ def test_sparse_apply_bitwise_matches_dense(faithful):
     results = {}
     for sparse in (False, True):
         cfg = SimConfig(
-            use_fused_citizen=True, use_pallas_scans=False,
-            use_sparse_apply=sparse, apply_sparse_slots=4,
+            use_fused_citizen=True, use_sparse_apply=sparse, apply_sparse_slots=4,
             bus_capacity=16, faithful_vaccine_bugs=faithful,
             # force the K-bounded per-OA recording paths (home AND the
             # sparse arm's work-OA scatter) — 8 slots means both the
@@ -213,8 +211,7 @@ def test_sortless_work_bitwise_matches_sorted(faithful):
     results = {}
     for sortless in (False, True):
         cfg = SimConfig(
-            use_fused_citizen=True, use_pallas_scans=False,
-            use_sparse_apply=True, apply_sparse_slots=4,
+            use_fused_citizen=True, use_sparse_apply=True, apply_sparse_slots=4,
             use_sortless_work=sortless, sortless_slots=4,
             sortless_max_rounds=4,
             bus_capacity=16, faithful_vaccine_bugs=faithful,
@@ -250,8 +247,7 @@ def test_chunk_runner_matches_raw_steps():
     params = Params.covid().as_arrays()
     cfg = SimConfig(
         max_steps=48, chunk_size=24,
-        use_fused_citizen=True, use_pallas_scans=False,
-        use_packed_sched=True,
+        use_fused_citizen=True, use_packed_sched=True,
     )
 
     st = init_state(wd, seed=9, starting_infected=30)
@@ -349,8 +345,7 @@ def test_sortless_bus_overflow_fallback_bitwise(faithful):
     results = {}
     for sortless in (False, True):
         cfg = SimConfig(
-            use_fused_citizen=True, use_pallas_scans=False,
-            use_sparse_apply=True, apply_sparse_slots=4,
+            use_fused_citizen=True, use_sparse_apply=True, apply_sparse_slots=4,
             use_sortless_work=sortless, sortless_slots=64,
             sortless_max_rounds=16,
             bus_capacity=16, faithful_vaccine_bugs=faithful,
@@ -391,8 +386,7 @@ def test_sortless_dense_bitwise_matches_sorted(faithful, bus_slots):
     results = {}
     for sortless in (False, True):
         cfg = SimConfig(
-            use_fused_citizen=True, use_pallas_scans=False,
-            use_sortless_dense=sortless, sortless_slots=4,
+            use_fused_citizen=True, use_sortless_dense=sortless, sortless_slots=4,
             sortless_max_rounds=4,
             bus_capacity=16, faithful_vaccine_bugs=faithful,
             # bus_slots=2 forces the dense sortless bus branch's
@@ -416,3 +410,50 @@ def test_sortless_dense_bitwise_matches_sorted(faithful, bus_slots):
         np.testing.assert_array_equal(a[1], b[1], err_msg=f"oa step {t}")
     for k in (1, 2, 3):
         np.testing.assert_array_equal(results[False][k], results[True][k])
+
+
+def test_citizen_phase_groups_match_per_group_calls():
+    """Group mode (one (n_groups,) parameter row per equal contiguous span,
+    as the packed ensemble calls it) equals calling the phase on each span
+    alone with its own scalars and its global-id offset."""
+    from epidemicsimulator_tpu.ops.citizen import (
+        citizen_phase, make_citizen_statics,
+    )
+
+    world = generate_synthetic_world(4_000, n_output_areas=8, seed=6)
+    # spans must not cut a household, as replica spans never do
+    starts = set(np.flatnonzero(np.asarray(world.home_start_mask)).tolist())
+    half = max(h for h in starts if 2 * h in starts)
+    n = 2 * half
+    rng = np.random.default_rng(2)
+    status = jnp.asarray(
+        rng.choice(5, n, p=[0.6, 0.1, 0.2, 0.05, 0.05]).astype(np.int8)
+    )
+    timer = jnp.asarray(rng.integers(0, 400, n).astype(np.int32))
+    sched = jnp.asarray(rng.integers(0, 32, n).astype(np.int8))
+    statics = jax.tree.map(lambda x: x[:n], make_citizen_statics(world))
+    rows = dict(
+        move=jnp.array([True, False]), mask_status=jnp.array([2, 0], jnp.int8),
+        exposed_time=jnp.array([96, 5], jnp.int32),
+        infected_time=jnp.array([336, 9], jnp.int32),
+        exposure_chance=jnp.array([0.3, 0.05], jnp.float32),
+        mask_effectiveness=jnp.array([0.7, 0.2], jnp.float32),
+    )
+    common = dict(h24=jnp.int8(9), seed=jnp.uint32(1234),
+                  K=world.max_household_size, ref_mask_sem=False,
+                  u8_trunc=True)
+    grouped = citizen_phase(statics, status, timer, sched, n_groups=2,
+                            **rows, **common)
+    for g in range(2):
+        sl = slice(g * half, (g + 1) * half)
+        alone = citizen_phase(
+            jax.tree.map(lambda x: x[sl], statics),
+            status[sl], timer[sl], sched[sl],
+            gid0=g * half, **{k: v[g] for k, v in rows.items()}, **common,
+        )
+        for a, b in zip(grouped[:4], alone[:4]):
+            np.testing.assert_array_equal(np.asarray(a)[sl], np.asarray(b))
+        np.testing.assert_array_equal(
+            np.asarray(grouped[4])[g], np.asarray(alone[4])[0]
+        )
+    assert int(np.asarray(grouped[4])[:, 7].sum()) > 0  # home hits drawn

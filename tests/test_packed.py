@@ -39,7 +39,7 @@ def _solo_run(world, params, status0, steps):
     import jax
 
     cfg = SimConfig(
-        use_fast_path=True, use_pallas_scans=False, use_fused_citizen=False,
+        use_fast_path=True, use_fused_citizen=False,
         max_vaccinations_per_step=4096,
     )
     st = init_state(world, seed=0, starting_infected=0)
@@ -160,11 +160,11 @@ def test_packed_replica_independence():
 
 
 def test_packed_fused_kernel_bitwise_matches_xla():
-    """The fused citizen kernel's ensemble mode (per-replica parameter rows
-    in SMEM, replica-aligned blocks; ops/pallas_citizen.py) must reproduce
-    the XLA packed step bitwise in deterministic regimes.  Per-replica
-    parameter routing is exercised hard: replica 2 has exposure_chance=0 so
-    any SMEM row mix-up floods it with infections; different exposed/
+    """The fused citizen phase's group mode (per-replica parameter rows,
+    one group per replica span; ops/citizen.py) must reproduce the unfused
+    packed step bitwise in deterministic regimes.  Per-replica parameter
+    routing is exercised hard: replica 2 has exposure_chance=0 so any
+    row mix-up floods it with infections; different exposed/
     infected times desynchronise the replicas' lockdown + vaccination
     triggers, so the per-replica move/mask rows vary across blocks."""
     import jax
@@ -195,8 +195,7 @@ def test_packed_fused_kernel_bitwise_matches_xla():
     for fused in (False, True):
         cfg = SimConfig(
             max_steps=steps, chunk_size=steps,
-            use_fused_citizen=fused, use_pallas_scans=False,
-            bus_capacity=8192,
+            use_fused_citizen=fused, bus_capacity=8192,
         )
         st = init_packed_state(pe, seed=0, starting_infected=0)
         stride, n, R = pe.rep_stride, pe.rep_size, pe.n_replicas
@@ -263,8 +262,7 @@ def test_ensemble_early_exit_semantics():
         dataclasses.replace(base.thresholds, vaccination=0.0),
     )
     cfg = SimConfig(
-        max_steps=400, chunk_size=25, use_pallas_scans=False,
-        use_fused_citizen=False, starting_infected=10,
+        max_steps=400, chunk_size=25, use_fused_citizen=False, starting_infected=10,
         max_vaccinations_per_step=64,
     )
     out_sei = run_packed_ensemble(world, [p, p], cfg, seed=0)

@@ -38,7 +38,7 @@ def _params():
 def _cfg(**kw):
     return SimConfig(
         max_steps=200, chunk_size=25,
-        use_fused_citizen=True, use_pallas_scans=True,  # interpret on CPU
+        use_fused_citizen=True,
         record_exposures_per_oa=False,
         **kw,
     )
@@ -121,7 +121,7 @@ def test_adaptive_dispatch_retired_and_legacy(monkeypatch):
 def test_sortless_rounds_resolution():
     """sortless_max_rounds auto is scale-aware: 16 below 16M citizens, 64
     at >=16M (drain rounds cost ~the same at any N while the sort they
-    replace grows with N — docs/PERF.md); explicit values pass through."""
+    replace grows with N); explicit values pass through."""
     from epidemicsimulator_tpu.engine.fastpath import sortless_rounds
 
     assert sortless_rounds(3_457_142, SimConfig()) == 16

@@ -76,7 +76,7 @@ def test_compact_positions_drain_rounds_cover_all_bits():
         acc = acc.at[jnp.where(live, pos, n)].set(True, mode="drop")
         return done + jnp.sum(live.astype(jnp.int32)), acc
 
-    _, total = mask_ranks(mask, use_pallas=False)
+    _, total = mask_ranks(mask)
     done, acc = jax.lax.while_loop(
         lambda c: c[0] < total, round_fn,
         (jnp.int32(0), jnp.zeros((n,), bool)),
@@ -89,7 +89,7 @@ def test_compact_from_ranks_matches_hierarchical():
     rng = np.random.default_rng(9)
     n, k = 65_537, 128
     mask = rng.random(n) < 0.001
-    rank, count = mask_ranks(jnp.asarray(mask), use_pallas=False)
+    rank, count = mask_ranks(jnp.asarray(mask))
     pos_a, live_a = compact_from_ranks(rank, count, k)
     pos_b, live_b, total = compact_positions(jnp.asarray(mask), k)
     assert int(count) == int(total)

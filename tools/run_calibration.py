@@ -50,10 +50,6 @@ def main():
     )
 
     t0 = time.perf_counter()
-    _ = int(jax.numpy.arange(8).sum())
-    print(f"attach: {time.perf_counter() - t0:.1f}s", flush=True)
-
-    t0 = time.perf_counter()
     world = generate_census_like_world(YORK_N, YORK_OA, seed=42)
     print(f"world: {time.perf_counter() - t0:.1f}s", flush=True)
 

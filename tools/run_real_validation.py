@@ -20,7 +20,7 @@ docs/FIDELITY.md "Against reality" states the findings.
 
 Usage:
   python tools/run_real_validation.py            # artifact comparison
-  python tools/run_real_validation.py --calibrate  # + TPU/device fits
+  python tools/run_real_validation.py --calibrate  # + device fits
 """
 
 import argparse
@@ -182,9 +182,6 @@ def calibrate_to_reality(dates, cases, w_big):
     enable_compilation_cache()
     import jax
 
-    t0 = time.perf_counter()
-    _ = int(jax.numpy.arange(8).sum())
-    print(f"attach: {time.perf_counter() - t0:.1f}s", flush=True)
     world = generate_census_like_world(SIM_POP, 637, seed=42)
 
     wave = np.nan_to_num(cases[w_big])

@@ -110,10 +110,6 @@ def main():
 
     import jax
 
-    t0 = time.perf_counter()
-    _ = int(jax.numpy.arange(8).sum())
-    print(f"attach {time.perf_counter() - t0:.1f}s", flush=True)
-
     os.makedirs(args.out, exist_ok=True)
     curves = []
     pops = []
